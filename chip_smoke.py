@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's commit and checkout path on one NVIDIA GPU.
+"""Drive the PyTorch port's commit, checkout and repack paths on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -30,10 +30,39 @@ use (into ``build/``).  Phases:
 (d) Breakdown.  The host steps of a commit, timed one by one, and one cold
     checkout under the port's span tracer and ``torch.profiler`` (device
     busy and idle share).
+(e) Segment kernel checks.  The solvers' kernels (segment min / argmin over
+    rows, the global min/argmin, the Modified-Prim re-parenting step) at the
+    main path's shapes — the 131,072 x 32 in-edge matrix of a 100,000-version
+    graph, a 2**21-element LMG candidate vector, a 131,072-element Prim/MP
+    key — and in edge cases (ties, all-+inf rows, NaN, widths that are not
+    a multiple of 32, a single row, lengths that are not a multiple of 128),
+    each held bit for bit against its plain version and timed beside its
+    bound and ``torch.amin`` / ``torch.argmin`` / ``torch.min``.
+(f) Solvers at n = 100,000 (``generate_flat``, the DC-like shape of the
+    solver-scale sweep; undirected for Prim): Problem 2 (SPT), Problem 1
+    undirected (Prim), Problem 3 (LMG) at 1.05 x C_min, Problem 6 (MP) at
+    1.5 x the SPT's max recreation, each through ``optimize`` with
+    ``backend="torch"`` on the card, then on the CPU (the plain versions),
+    then with ``backend="numpy"``.  The card's tree must equal the CPU
+    torch tree; the parents that differ from the numpy tree are counted
+    (f32 selection may break near-ties the other way) beside both f64
+    objectives.  Then Prim and MP run at n = 2,000 under torch.profiler
+    (after the counted runs): the device's busy share, and the host
+    synchronisations, which must not grow with the steps.
+(g) Store repack.  A fresh ``Repository`` of 64 versions of ~4 MiB in a
+    branching history (four dtypes, 0.5% of blocks edited per commit) is
+    committed and its cost graph measured (counted as one phase), then
+    repacked with Problem 3 (LMG) and then Problem 6 (MP) through specs
+    that name no backend: the default, ``"torch"``, selects on the store's
+    card.  Every version is then checked out and compared byte for byte
+    with host ground truth.
 
-The launch counters of the kernels are set to 0 before each main-path phase
-and read after it; a kernel its phase should use that launched no time
-fails the run, as does any mismatch.  The last lines are the card's name and
+Phase (e) runs right after (a), so that every kernel is checked before the
+main path starts.  The launch counters of the kernels are set to 0 before
+each main-path phase and read after it; a kernel its phase should use that
+launched no time fails the run, as does any mismatch.  Phases (b), (c),
+(f) and (g) are the main path; the launches of (a) and (e), which compare
+kernels with their plain versions, are not counted.  The last lines are the card's name and
 power limit (``nvidia-smi``), one JSON object with each kernel's numbers,
 and the result line ``{"ok": true, "device": {...}}``.
 """
@@ -151,12 +180,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # hold the device (~0.1 ms per iteration at ~2 GHz) while the host
+    # enqueues the launches, so that the events time the device's work and
+    # not the host's launch overhead, which hides small kernels
+    torch.cuda._sleep(iters * 200_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_call_ms(fn, iters: int = 200) -> float:
+    """Wall time of one call from the host, launch overhead included: what a
+    loop of dependent calls pays per step."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def bound_ms(nbytes: int) -> float:
@@ -311,13 +358,17 @@ class Counters:
     """The wrappers' launch counters, zeroed and read around each phase."""
 
     def __init__(self):
-        from repro_torch.kernels import block_diff, chain_apply, sparse_apply
+        from repro_torch.kernels import block_diff, chain_apply, segment_ops, sparse_apply
 
         self.fns = {
             "changed_block_mask": [block_diff.changed_block_mask],
             "sparse_delta_apply": [sparse_apply.sparse_delta_apply],
             "chain_delta_apply": [chain_apply.chain_delta_apply,
                                   chain_apply.chain_delta_apply_batched],
+            "segment_min_rows": [segment_ops.segment_min_rows],
+            "segment_argmin_rows": [segment_ops.segment_argmin_rows],
+            "min_argmin_1d": [segment_ops.min_argmin_1d],
+            "mp_reparent": [segment_ops.mp_reparent],
         }
         self.total = {name: 0 for name in self.fns}
 
@@ -490,6 +541,463 @@ def breakdown(root: Path, truth: dict, device: str = "cuda") -> None:
         log("phase d: device busy time not measured (the profiler saw no device events)")
 
 
+# ------------------------------------------------- (e) segment kernel checks
+SOLVER_N = 100_000     # versions of the phase (f) graphs
+LMG_CANDIDATES = 1 << 21
+
+
+def same_bits(got, want, what: str) -> float:
+    """Bit-for-bit equality (NaN == NaN); returns the max abs error (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {got.dtype} {tuple(got.shape)} != {want.dtype} {tuple(want.shape)}")
+    if got.dtype.is_floating_point:
+        same = torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(
+            torch.nan_to_num(got, nan=0.0), torch.nan_to_num(want, nan=0.0))
+        check(same, f"{what}: differs from its plain version")
+        fin = torch.isfinite(got) & torch.isfinite(want)
+        return float((got[fin].double() - want[fin].double()).abs().max()) if fin.any() else 0.0
+    check(torch.equal(got, want), f"{what}: differs from its plain version")
+    return 0.0
+
+
+def padded_rows_like(g, rows: int, width: int, dev):
+    """A (rows, width) f32 matrix like the SSSP relaxation's: random costs in
+    the first k columns of each row (k drawn 1..width), +inf padding, a few
+    exact ties and all-+inf rows."""
+    import torch
+
+    x = torch.rand((rows, width), device=dev, generator=g) * 1e6
+    fill = torch.randint(1, width + 1, (rows, 1), device=dev, generator=g)
+    cols = torch.arange(width, device=dev)[None, :]
+    x = torch.where(cols < fill, x, torch.inf)
+    x[::97] = torch.inf                        # all-+inf rows
+    if width > 3:
+        x[5::101, 3] = x[5::101, 1]            # ties (first index must win)
+    return x.contiguous()
+
+
+def segment_checks(dev) -> list:
+    """Phase (e): each solver kernel against its plain version at the main
+    path's shapes and in edge cases, bit for bit, and timed."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_ops import (
+        min_argmin_1d,
+        mp_reparent,
+        segment_argmin_rows,
+        segment_min_rows,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    nvp, width = 131_072, 32
+    results = []
+
+    # per-row reductions: the in-edge matrix, then edge cases
+    x = padded_rows_like(g, nvp, width, dev)
+    err_min = same_bits(segment_min_rows(x), ref.segment_min_rows_ref(x), "segment_min_rows")
+    err_arg = same_bits(segment_argmin_rows(x), ref.segment_argmin_rows_ref(x), "segment_argmin_rows")
+    edge = padded_rows_like(g, 300, 37, dev)
+    edge[7, 5] = torch.nan
+    edge[8, [2, 30]] = torch.nan                   # two NaNs: the first wins
+    edge[9, :] = 1.5                               # a row of ties
+    cases = {
+        "width 37, NaN, ties, all-inf": edge,
+        "width 19": padded_rows_like(g, 1000, 19, dev),
+        "width 1": padded_rows_like(g, 64, 1, dev),
+        "one row": padded_rows_like(g, 1, 32, dev),
+        "width 200": padded_rows_like(g, 33, 200, dev),
+    }
+    for label, c in cases.items():
+        same_bits(segment_min_rows(c), ref.segment_min_rows_ref(c), f"segment_min_rows ({label})")
+        same_bits(segment_argmin_rows(c), ref.segment_argmin_rows_ref(c), f"segment_argmin_rows ({label})")
+    check(int(segment_argmin_rows(edge)[8]) == 2, "segment_argmin_rows: first NaN must win")
+    check(bool(torch.isnan(segment_min_rows(edge)[7])), "segment_min_rows: NaN must propagate")
+    row_bytes = nvp * width * 4 + nvp * 4
+    results.append({
+        "name": "segment_min_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_kernels.cu",
+        "replaces": "src/repro/kernels/segment_ops.py:62",
+        "max_abs_err": err_min,
+        "ms": cuda_ms(lambda: segment_min_rows(x)),
+        "call_ms": host_call_ms(lambda: segment_min_rows(x)),
+        "plain_ms": cuda_ms(lambda: ref.segment_min_rows_ref(x)),
+        "bound_ms": bound_ms(row_bytes), "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.amin(x, 1)),
+    })
+    results.append({
+        "name": "segment_argmin_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_kernels.cu",
+        "replaces": "src/repro/kernels/segment_ops.py:62",
+        "max_abs_err": err_arg,
+        "ms": cuda_ms(lambda: segment_argmin_rows(x)),
+        "call_ms": host_call_ms(lambda: segment_argmin_rows(x)),
+        "plain_ms": cuda_ms(lambda: ref.segment_argmin_rows_ref(x)),
+        "bound_ms": bound_ms(row_bytes), "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.argmin(x, 1)),
+    })
+    del x
+
+    # global (min, first argmin): an LMG candidate vector (-rho: mostly
+    # +1 for infeasible candidates, a few scored) and a Prim/MP key
+    # (+inf for tree vertices); then edge cases
+    def both(v, what):
+        gv, gi = min_argmin_1d(v)
+        wv, wi = ref.min_argmin_1d_ref(v)
+        same_bits(gi, wi, f"min_argmin_1d index ({what})")
+        return same_bits(gv, wv, f"min_argmin_1d value ({what})")
+
+    cand = torch.ones(LMG_CANDIDATES, device=dev)
+    scored = torch.randint(0, LMG_CANDIDATES, (4096,), device=dev, generator=g)
+    cand[scored] = -torch.rand(4096, device=dev, generator=g) * 10
+    cand[scored[:3]] = cand.min() - 1              # a three-way tie at the min
+    key = torch.rand(nvp, device=dev, generator=g) * 1e6
+    key[torch.rand(nvp, device=dev, generator=g) < 0.6] = torch.inf
+    err_1d = max(both(cand, "LMG candidates"), both(key, "Prim/MP key"))
+    nan_v = key.clone()
+    nan_v[[77_777, 99_999]] = torch.nan
+    for label, v in {
+        "NaN": nan_v,
+        "all +inf": torch.full((nvp,), torch.inf, device=dev),
+        "n = 1_000_003": torch.rand(1_000_003, device=dev, generator=g),
+        "n = 1": torch.rand(1, device=dev, generator=g),
+        "n = 129, min last": torch.cat([torch.ones(128, device=dev),
+                                        torch.zeros(1, device=dev)]),
+        "all ties": torch.full((5000,), 2.0, device=dev),
+    }.items():
+        both(v, label)
+    check(int(min_argmin_1d(nan_v)[1]) == 77_777, "min_argmin_1d: first NaN must win")
+    check(int(min_argmin_1d(torch.full((nvp,), torch.inf, device=dev))[1]) == 0,
+          "min_argmin_1d: all +inf must give index 0")
+    results.append({
+        "name": "min_argmin_1d", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_kernels.cu",
+        "replaces": "src/repro/kernels/segment_ops.py:62",
+        "max_abs_err": err_1d,
+        "ms": cuda_ms(lambda: min_argmin_1d(key)),
+        "call_ms": host_call_ms(lambda: min_argmin_1d(key)),
+        "plain_ms": cuda_ms(lambda: ref.min_argmin_1d_ref(key)),
+        "bound_ms": bound_ms(nvp * 4 + 8), "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.min(key, 0)),
+        "shapes": f"key ({nvp},); checked also at ({LMG_CANDIDATES},) "
+                  f"[{cuda_ms(lambda: min_argmin_1d(cand)):.6f} ms, bound "
+                  f"{bound_ms(LMG_CANDIDATES * 4 + 8):.6f} ms, torch.min "
+                  f"{cuda_ms(lambda: torch.min(cand, 0)):.6f} ms]",
+    })
+
+    # mp_reparent: an MP state at the main path's shape (a random forest with
+    # parents below their children, half the vertices in the tree), then the
+    # same sequence of selected vertices through the kernel and through the
+    # plain loop on copies of the state
+    def state():
+        pd = torch.randint(1, nvp, (nvp, width), dtype=torch.int32, device=dev, generator=g)
+        pd[:, 24:] = nvp                                   # padding
+        pdelta = torch.rand((nvp, width), device=dev, generator=g) * 100
+        pphi = torch.rand((nvp, width), device=dev, generator=g) * 100
+        pdelta[:, 24:] = torch.inf
+        pphi[:, 24:] = torch.inf
+        pphi[::11, 0] = 0.0                                # exact-EPS boundary
+        ids = torch.arange(nvp + 2, device=dev)
+        p = (torch.rand(nvp + 2, device=dev, generator=g) * ids).to(torch.int32)
+        p[0] = -1
+        d = torch.rand(nvp + 2, device=dev, generator=g) * 200
+        l = torch.rand(nvp + 2, device=dev, generator=g) * 100
+        d[0] = l[0] = 0.0
+        in_tree = torch.rand(nvp + 2, device=dev, generator=g) < 0.5
+        in_tree[0] = True
+        in_tree[nvp:] = False
+        return pd, pdelta, pphi, in_tree, l, d, p
+
+    pd, pdelta, pphi, in_tree, l, d, p = state()
+    picks = torch.randint(1, nvp, (64,), dtype=torch.int32, device=dev, generator=g)
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    k_state = [t.clone() for t in (l, d, p)]
+    r_state = [t.clone() for t in (l, d, p)]
+    for j in range(picks.shape[0]):
+        vi, act = picks[j], (false if j % 16 == 15 else true)
+        mp_reparent(pd, pdelta, pphi, vi, act, in_tree, *k_state)
+        ref.mp_reparent_ref(pd, pdelta, pphi, vi, act, in_tree, *r_state)
+    err_mp = 0.0
+    for name, got, want in zip("ldp", k_state, r_state):
+        err_mp = max(err_mp, same_bits(got, want, f"mp_reparent {name}"))
+    changed = int((k_state[2] != p).sum())
+    check(changed > 0, "mp_reparent: the check state re-parented nothing")
+    log(f"phase e: mp_reparent re-parented {changed} vertices over {picks.shape[0]} steps")
+
+    def steps(fn, st):
+        """One call per invocation, cycling through the selected vertices."""
+        count = iter(range(1 << 62))
+
+        def step():
+            fn(pd, pdelta, pphi, picks[next(count) % picks.shape[0]], true, in_tree, *st)
+        return step
+
+    k_step = steps(mp_reparent, [t.clone() for t in (l, d, p)])
+    k_ms = cuda_ms(k_step)
+    r_ms = cuda_ms(steps(ref.mp_reparent_ref, [t.clone() for t in (l, d, p)]),
+                   iters=8, warmup=1)
+    # bytes one step must touch: its row of ids and costs, the in-tree flags,
+    # l / d of its neighbours and the written entries (the walk's reads are
+    # data-dependent and not counted)
+    step_bytes = width * (4 + 4 + 4 + 1 + 4 + 4) + 4 + 1
+    results.append({
+        "name": "mp_reparent", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_kernels.cu",
+        "replaces": "src/repro/core/solvers/jax_backend.py:300",
+        "max_abs_err": err_mp,
+        "ms": k_ms, "plain_ms": r_ms,
+        "bound_ms": bound_ms(step_bytes), "bound_by": "bytes",
+        "library_ms": None, "call_ms": host_call_ms(k_step),
+    })
+    del pd, pdelta, pphi, in_tree, l, d, p, k_state, r_state, cand, key
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for r in results:
+        log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']} ms {r['ms']:.6f} "
+            f"plain_ms {r['plain_ms']:.6f} bound_ms {r['bound_ms']:.9f} "
+            f"library_ms {r['library_ms']} call_ms {r['call_ms']:.6f}"
+            + (f" {r['shapes']}" if "shapes" in r else ""))
+    return results
+
+
+# ------------------------------------------------------------ (f) solvers
+def solver_graph(n: int, directed: bool):
+    """The solver-scale sweep's DC-like instance (edges ~20-30 a version)."""
+    from repro_torch.core import WorkloadSpec, generate_flat
+
+    return generate_flat(WorkloadSpec(
+        commits=n, branch_interval=3, branch_prob=0.7, branch_limit=4,
+        branch_length=4, reveal_hops=3, seed=SEED % 1000, directed=directed,
+    )).graph
+
+
+def drive_solvers(counters: "Counters") -> dict:
+    """Phase (f): the four device solvers through ``optimize`` on the card,
+    the CPU (plain versions) and numpy; returns per-solver timings."""
+    import torch
+
+    from repro_torch.core import OptimizeSpec, optimize
+
+    def specs(gd, gu):
+        """(label, graph, spec factory taking the backend) per solver; the
+        bounds come from numpy's trees, so every backend solves one problem."""
+        base = optimize(gd, OptimizeSpec.problem(1, backend="numpy")).solution
+        spt = optimize(gd, OptimizeSpec.problem(2, backend="numpy")).solution
+        beta = base.storage_cost() * 1.05
+        theta = spt.max_recreation() * 1.5
+        return [
+            ("spt", gd, lambda b: OptimizeSpec.problem(2, backend=b)),
+            ("prim", gu, lambda b: OptimizeSpec.problem(1, backend=b)),
+            ("lmg", gd, lambda b: OptimizeSpec.problem(3, beta=beta, backend=b)),
+            ("mp", gd, lambda b: OptimizeSpec.problem(6, theta=theta, backend=b)),
+        ]
+
+    def run(g, spec, device):
+        t0 = time.perf_counter()
+        res = optimize(g, spec, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gd, gu = solver_graph(SOLVER_N, True), solver_graph(SOLVER_N, False)
+    log(f"phase f: graphs n={SOLVER_N}: directed {gd.n_edges} edges, undirected "
+        f"{gu.n_edges} edges, made in {time.perf_counter() - t0:.3f} s")
+    out = {}
+    for label, g, make in specs(gd, gu):
+        counters.zero()
+        cuda, cuda_s = run(g, make("torch"), "cuda")
+        launches = counters.read(f"phase f ({label}, cuda)", SOLVER_NEEDS[label])
+        check(cuda.backend_used == "torch", f"phase f {label}: backend_used {cuda.backend_used}")
+        cpu, cpu_s = run(g, make("torch"), "cpu")
+        numpy_res, numpy_s = run(g, make("numpy"), "cpu")
+        check(cuda.solution.parent == cpu.solution.parent,
+              f"phase f {label}: the card's tree differs from the CPU torch tree")
+        differ = sum(1 for v, p in cuda.solution.parent.items()
+                     if numpy_res.solution.parent[v] != p)
+        out[label] = {"cuda_s": cuda_s, "cpu_s": cpu_s, "numpy_s": numpy_s,
+                      "launches": launches}
+        log(f"phase f: {label}: backend_used cuda={cuda.backend_used} cpu={cpu.backend_used} "
+            f"numpy={numpy_res.backend_used}; wall cuda {cuda_s:.3f} s, cpu {cpu_s:.3f} s, "
+            f"numpy {numpy_s:.3f} s; cuda tree == cpu tree; parents differing from "
+            f"numpy {differ} of {g.n}; objective {cuda.spec.objective.metric} torch "
+            f"{cuda.objective_value!r} numpy {numpy_res.objective_value!r}")
+    return out
+
+
+def solver_trace(n: int = 2_000) -> None:
+    """Prim and MP on the card at ``n`` versions under torch.profiler: the
+    device's busy share, and the host synchronisations the run made, which
+    must not grow with the number of steps (the step loops never sync)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.core import OptimizeSpec, optimize
+
+    syncs = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+    gu, gd = solver_graph(n, False), solver_graph(n, True)
+    theta = optimize(gd, OptimizeSpec.problem(2, backend="numpy")).solution.max_recreation() * 1.5
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, g, spec in (("prim", gu, OptimizeSpec.problem(1)),
+                           ("mp", gd, OptimizeSpec.problem(6, theta=theta))):
+        optimize(g, spec, device="cuda")  # warm
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            optimize(g, spec, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, counts = 0.0, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                busy += e.time_range.elapsed_us() / 1e6
+            elif e.name in syncs or e.name == "cudaLaunchKernel":
+                counts[e.name] = counts.get(e.name, 0) + 1
+        n_sync = sum(v for k, v in counts.items() if k in syncs)
+        log(f"phase f: traced {label} n={n} ({n} steps) in {wall:.3f} s: device busy "
+            f"{busy:.6f} s (idle share {1 - busy / wall:.6f}); runtime events "
+            f"{json.dumps(counts)}")
+        if counts.get("cudaLaunchKernel"):
+            check(n_sync < n // 10,
+                  f"phase f: {label} synchronised {n_sync} times in {n} steps")
+        else:
+            log(f"phase f: {label}: the trace holds no runtime API events; host "
+                f"synchronisations not measured")
+
+
+# which kernels each solver's card run must launch
+SOLVER_NEEDS = {
+    "spt": ("segment_min_rows", "segment_argmin_rows"),
+    "prim": ("min_argmin_1d",),
+    "lmg": ("segment_min_rows", "segment_argmin_rows", "min_argmin_1d"),
+    "mp": ("min_argmin_1d", "mp_reparent"),
+}
+
+
+# -------------------------------------------------------- (g) store repack
+# name -> (dtype, shape): ~4 MiB per version, four dtypes
+REPACK_LEAVES = {
+    "table/f32": ("float32", (512, 1024)),     # 2 MiB
+    "table/f16": ("float16", (256, 2048)),     # 1 MiB
+    "emb/bf16": ("bfloat16", (256, 1024)),     # 512 KiB
+    "tok/i8": ("int8", (524_288,)),            # 512 KiB
+}
+REPACK_VERSIONS = 64
+
+
+def drive_repack(root: Path, counters: "Counters", device: str = "cuda") -> dict:
+    """Phase (g): commit a branching history, repack it with Problem 3 and
+    then Problem 6 on the card, and check every version out."""
+    from repro_torch.core import OptimizeSpec
+    from repro_torch.store import Repository
+
+    rng = np.random.default_rng(SEED + 7)
+    tree = {}
+    for name, (dtype, shape) in REPACK_LEAVES.items():
+        n = int(np.prod(shape))
+        if dtype == "bfloat16":
+            import torch
+
+            f = torch.from_numpy(rng.standard_normal(n, dtype=np.float32))
+            arr = f.to(torch.bfloat16).view(torch.uint16).numpy()
+        elif dtype == "int8":
+            arr = rng.integers(-128, 128, n, dtype=np.int8)
+        else:
+            arr = rng.standard_normal(n, dtype=np.float32).astype(dtype)
+        tree[name] = arr.reshape(shape)
+
+    def as_repack_payload(t):
+        import torch
+
+        payload: dict = {}
+        for name, arr in t.items():
+            x = torch.from_numpy(arr)
+            if REPACK_LEAVES[name][0] == "bfloat16":
+                x = x.view(torch.bfloat16)
+            group, leaf = name.split("/")
+            payload.setdefault(group, {})[leaf] = x
+        return payload
+
+    budget = (REPACK_VERSIONS + 8) * sum(a.nbytes for a in tree.values())
+    repo = Repository(root, device=device, cache_budget_bytes=budget)
+    truth = {}
+    counters.zero()
+    t0 = time.perf_counter()
+    truth[repo.commit(as_repack_payload(tree), message="root")] = tree
+    # a branching history: every 8th commit forks a branch off a random
+    # earlier version; commits alternate which two leaves they edit
+    tips = {"main": tree}
+    for i in range(1, REPACK_VERSIONS):
+        if i % 8 == 0:
+            base_vid = int(rng.integers(1, i + 1))
+            name = f"b{i}"
+            repo.branch(name, at=base_vid)
+            tips[name] = truth[base_vid]
+        branch = list(tips)[-1] if i % 8 else name
+        parent = dict(tips[branch])
+        for leaf in list(REPACK_LEAVES)[(i % 2) * 2:(i % 2) * 2 + 2]:
+            parent[leaf] = edit_blocks(rng, parent[leaf])
+        vid = repo.commit(as_repack_payload(parent), branch=branch, message=f"{branch} {i}")
+        truth[vid] = parent
+        tips[branch] = parent
+    commit_s = time.perf_counter() - t0
+    log(f"phase g: {len(truth)} versions of "
+        f"{sum(a.nbytes for a in tree.values()) / 2**20:.2f} MiB committed in "
+        f"{commit_s:.3f} s over {len(tips)} branches; stored "
+        f"{repo.store.storage_bytes()} bytes")
+
+    # the repack's own measurement: every Δ around the derivation DAG, each a
+    # delta encode (changed_block_mask) of two checkouts (chain_delta_apply)
+    t0 = time.perf_counter()
+    g, _ = repo.store.build_cost_graph()
+    log(f"phase g: build_cost_graph measured {repo.store.last_measured_edges} "
+        f"edges in {time.perf_counter() - t0:.3f} s")
+    counters.read("phase g (commits + build_cost_graph)", ("changed_block_mask",))
+
+    from repro_torch.core import minimum_storage_tree
+
+    out = {}
+    for problem in (3, 6):
+        if problem == 3:
+            beta = minimum_storage_tree(g, backend="numpy").storage_cost() * 1.05
+            spec = OptimizeSpec.problem(3, beta=beta)
+        else:
+            spec = OptimizeSpec.problem(
+                6, theta=1.5 * max(repo.store.recreation_cost(v) for v in truth))
+        counters.zero()
+        t0 = time.perf_counter()
+        res = repo.repack(spec)
+        wall = time.perf_counter() - t0
+        launches = counters.read(
+            f"phase g (repack, Problem {problem})",
+            SOLVER_NEEDS["lmg" if problem == 3 else "mp"],
+        )
+        check(res["optimize"]["backend"] == "torch",
+              f"phase g: Problem {problem} ran on {res['optimize']['backend']}")
+        log(f"phase g: repack Problem {problem} in {wall:.3f} s: storage_bytes "
+            f"{res['before']['storage_bytes']} -> {res['after']['storage_bytes']}, "
+            f"max_recreation_s {res['before']['max_recreation_s']:.6f} -> "
+            f"{res['after']['max_recreation_s']:.6f}, gc_freed_bytes "
+            f"{res['gc_freed_bytes']}, backend_used {res['optimize']['backend']}, "
+            f"solver wall {res['optimize']['wall_time_s']} s, measured edges "
+            f"{repo.store.last_measured_edges}")
+        out[problem] = {"wall_s": wall, "launches": launches, **res}
+    repo.close()
+
+    repo = Repository(root, device=device, cache_budget_bytes=0)
+    t0 = time.perf_counter()
+    for vid, want in truth.items():
+        got = repo.store.checkout(vid)
+        same_tree(got, want, f"repacked v{vid}")
+    log(f"phase g: all {len(truth)} versions checked out byte for byte after "
+        f"both repacks in {time.perf_counter() - t0:.3f} s")
+    repo.close()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -499,19 +1007,26 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import kernels
 
+    start = time.perf_counter()
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib = kernels.build()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.3f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
-    kernels.library()
+    libs = kernels.build()  # one nvcc per source, all at once
+    log(f"build: {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for lib in libs.values():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas {lib.stem}: {line.strip()}")
+    for stem in libs:
+        kernels.library(stem)
 
     t0 = time.perf_counter()
     results = kernel_checks(dev)
     log(f"phase a: kernel checks in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    results += segment_checks(dev)
+    log(f"phase e: segment kernel checks in {time.perf_counter() - t0:.3f} s")
 
     counters = Counters()
     (ROOT / "build").mkdir(exist_ok=True)
@@ -525,7 +1040,16 @@ def main() -> int:
         t0 = time.perf_counter()
         breakdown(Path(tmp) / "repo", truth)
         log(f"phase d: wall {time.perf_counter() - t0:.3f} s")
+        del truth
+        t0 = time.perf_counter()
+        drive_solvers(counters)
+        solver_trace()
+        log(f"phase f: wall {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        drive_repack(Path(tmp) / "repack", counters)
+        log(f"phase g: wall {time.perf_counter() - t0:.3f} s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"total wall {time.perf_counter() - start:.3f} s")
 
     for r in results:
         r["launches"] = counters.total[r["name"]]

@@ -1,18 +1,22 @@
 """Hand-written CUDA kernels of the port: build, load and launch.
 
-The kernels are CUDA C++ with a plain C interface, in ``csrc/``.  At first
-use the package compiles them with ``nvcc`` for Hopper (``sm_90a``) into
-``build/`` at the root of the checkout, under a file lock, and loads the
-shared library with ``ctypes``.  The library's file name carries a hash of
-its source, so an edited source is rebuilt and a stale library never loads.
-A failed build raises.
+The kernels are CUDA C++ with a plain C interface, one library per source
+file in ``csrc/`` (``delta_kernels.cu``: the block-sparse delta path;
+``segment_kernels.cu``: the solvers' segment min/argmin reductions and the
+Modified-Prim re-parenting step).  At first use the package compiles every
+source with ``nvcc`` for Hopper (``sm_90a``) into ``build/`` at the root of
+the checkout — one ``nvcc`` process per source, all started together —
+under a file lock, and loads each shared library with ``ctypes``.  A
+library's file name carries a hash of its source, so an edited source is
+rebuilt and a stale library never loads.  A failed build raises.
 
-Every wrapper (:mod:`.block_diff`, :mod:`.sparse_apply`, :mod:`.chain_apply`)
-dispatches on the device of its tensors: CPU tensors take the plain PyTorch
-version in :mod:`.ref`; CUDA tensors launch the kernel or raise.  There is no
-fallback from one to the other, and no wrapper writes into its arguments.
-Each wrapper counts its launches in a plain integer attribute,
-``<wrapper>.launches``.
+Every wrapper (:mod:`.block_diff`, :mod:`.sparse_apply`, :mod:`.chain_apply`,
+:mod:`.segment_ops`) dispatches on the device of its tensors: CPU tensors
+take the plain PyTorch version in :mod:`.ref`; CUDA tensors launch the
+kernel or raise.  There is no fallback from one to the other.  No wrapper
+writes into its arguments, except ``mp_reparent``, whose contract is an
+in-place update of the solver's own loop buffers.  Each wrapper counts its
+launches in a plain integer attribute, ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -25,18 +29,54 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Union
 
 import torch
 
 from .ref import BLOCK_SHAPE
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "delta_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 _GENCODE = "arch=compute_90a,code=sm_90a"
 
+_i, _ll, _vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+#: library (source stem) -> (its error-string entry, {entry: argtypes}); every
+#: entry takes the device first and the stream last and returns a CUDA error
+_ENTRIES = {
+    "delta_kernels": ("delta_error_string", {
+        "delta_changed_block_mask": [_i, _vp, _vp, _vp, _ll, _vp],
+        "delta_sparse_scatter": [_i, _vp, _vp, _vp, _ll, _ll, _vp],
+        "delta_chain_winner": [_i, _vp, _vp, _ll, _ll, _vp],
+        "delta_chain_copy": [_i, _vp, _vp, _vp, _vp, _ll, _ll, _vp],
+    }),
+    "segment_kernels": ("segment_error_string", {
+        "segment_min_rows": [_i, _vp, _vp, _ll, _ll, _vp],
+        "segment_argmin_rows": [_i, _vp, _vp, _ll, _ll, _vp],
+        "segment_min_argmin_1d": [_i, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp],
+        "segment_mp_reparent": [
+            _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp,
+        ],
+    }),
+}
+_LIBRARY_OF = {
+    entry: stem for stem, (_, entries) in _ENTRIES.items() for entry in entries
+}
+
 _load_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device a store or solver computes on; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port runs its kernels on a CUDA device and none is "
+            "available; pass device='cpu' to run the plain PyTorch versions"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device}")
+    return device
 
 
 def _nvcc() -> str:
@@ -52,71 +92,84 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libdelta_kernels_{digest}.so"
+def sources() -> Dict[str, Path]:
+    """Every kernel source, ``csrc/*.cu``, by stem."""
+    return {src.stem: src for src in sorted(CSRC.glob("*.cu"))}
 
 
-def build() -> Path:
-    """Compile the kernels unless this source is already built; returns the
-    library's path.  ``nvcc``'s output (``-Xptxas -v``: registers, shared
-    memory, spills) is kept beside the library as ``.log``."""
-    path = library_path()
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+
+
+def build() -> Dict[str, Path]:
+    """Compile every source whose library is not built yet, one ``nvcc``
+    per source, all at once; returns each library's path by source stem.
+    ``nvcc``'s output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept beside each library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs = sources()
+    paths = {stem: library_path(src) for stem, src in srcs.items()}
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        if path.exists():
-            return path
-        tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
-        cmd = [
-            _nvcc(), "-gencode", _GENCODE, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        path.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode} building "
-                f"{SOURCE.name}:\n{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    return path
+        jobs = []
+        for stem, path in paths.items():
+            if path.exists():
+                continue
+            src = srcs[stem]
+            tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+            cmd = [
+                _nvcc(), "-gencode", _GENCODE, "-std=c++17", "-O3",
+                "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-o", str(tmp), str(src),
+            ]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            jobs.append((src, path, tmp, cmd, proc))
+        failed = []
+        for src, path, tmp, cmd, proc in jobs:
+            out, err = proc.communicate()
+            path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(
+                    f"nvcc failed with exit code {proc.returncode} building "
+                    f"{src.name}:\n{err}"
+                )
+            else:
+                os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu`` (every library is built on
+    the first call)."""
     with _load_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            i, ll, vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-            signatures = {
-                "delta_changed_block_mask": [i, vp, vp, vp, ll, vp],
-                "delta_sparse_scatter": [i, vp, vp, vp, ll, ll, vp],
-                "delta_chain_winner": [i, vp, vp, ll, ll, vp],
-                "delta_chain_copy": [i, vp, vp, vp, vp, ll, ll, vp],
-            }
-            for name, argtypes in signatures.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.delta_error_string.argtypes = [i]
-            lib.delta_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+        if not _libs:
+            built = build()
+            for name, (err_fn, entries) in _ENTRIES.items():
+                lib = ctypes.CDLL(str(built[name]))
+                for entry, argtypes in entries.items():
+                    fn = getattr(lib, entry)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                getattr(lib, err_fn).argtypes = [ctypes.c_int]
+                getattr(lib, err_fn).restype = ctypes.c_char_p
+                _libs[name] = lib
+        return _libs[stem]
 
 
 def launch(name: str, device: torch.device, *args: int) -> None:
     """Call C entry ``name`` on ``device`` and PyTorch's current stream;
     raise if the launch reports a CUDA error."""
-    lib = library()
+    stem = _LIBRARY_OF[name]
+    lib = library(stem)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, name)(device.index, *args, stream)
     if err:
-        msg = lib.delta_error_string(err).decode()
+        msg = getattr(lib, _ENTRIES[stem][0])(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 

@@ -1,13 +1,16 @@
-"""Plain PyTorch versions of the delta-path kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Everything operates on the canonical *block layout*: a tensor's backing bytes
-are viewed as ``(num_blocks, 8, 128)`` int32, one 4 KiB storage block per
-row.  The shape is kept from the JAX package (where a block is one TPU VMEM
-tile) so that wire bytes match; on the GPU a block is simply 1024 words.
+The delta-path functions operate on the canonical *block layout*: a
+tensor's backing bytes are viewed as ``(num_blocks, 8, 128)`` int32, one
+4 KiB storage block per row.  The shape is kept from the JAX package (where
+a block is one TPU VMEM tile) so that wire bytes match; on the GPU a block
+is simply 1024 words.  The solver functions reduce padded f32 rows and run
+one Modified-Prim re-parenting step.
 
 These functions are what the kernel wrappers run for CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.  None of them
-writes into its arguments.
+writes into its arguments, except ``mp_reparent_ref``, which updates the
+solver loop's own ``l`` / ``d`` / ``p`` buffers in place, as its kernel does.
 """
 
 from __future__ import annotations
@@ -70,3 +73,71 @@ def chain_delta_apply_ref(
     return sparse_delta_apply_ref(
         base, blocks.reshape((-1,) + BLOCK_SHAPE), idx.reshape(-1)
     )
+
+
+# ------------------------------------------------------ solver segment ops
+#: MP's re-parenting slack, compared in f32; ``kEps`` in
+#: ``csrc/segment_kernels.cu`` is the same value, and equal to the solvers'
+#: ``repro_torch.core.solvers.EPS`` (a test holds all three together)
+EPS = 1e-15
+
+# NaN is the minimum and propagates, ties go to the first index, indices are
+# int32: the semantics of XLA's min / argmin, which the JAX package's
+# segment kernels and solvers rely on.
+
+
+def segment_min_rows_ref(x: torch.Tensor) -> torch.Tensor:
+    """(rows,) minimum of each row of a (rows, width) f32 matrix."""
+    return torch.amin(x, dim=1)
+
+
+def segment_argmin_rows_ref(x: torch.Tensor) -> torch.Tensor:
+    """(rows,) int32 index of the first minimum of each row."""
+    return torch.argmin(x, dim=1).to(torch.int32)
+
+
+def min_argmin_1d_ref(x: torch.Tensor):
+    """(min, first argmin) of a flat f32 vector as 0-d tensors (f32, int32)."""
+    i = torch.argmin(x)
+    return x[i], i.to(torch.int32)
+
+
+def mp_reparent_ref(
+    pd: torch.Tensor,
+    pdelta: torch.Tensor,
+    pphi: torch.Tensor,
+    vi: torch.Tensor,
+    active: torch.Tensor,
+    in_tree: torch.Tensor,
+    l: torch.Tensor,
+    d: torch.Tensor,
+    p: torch.Tensor,
+) -> None:
+    """One Modified-Prim in-tree re-parenting pass, in place on ``l``, ``d``
+    and ``p``: for each slot k of the selected vertex ``vi``'s out-row (in
+    order), an in-tree neighbour ``vj`` is re-parented under ``vi`` when that
+    does not raise its recreation cost ``d`` by more than :data:`EPS`, lowers
+    its storage cost ``l`` by at least :data:`EPS`, and ``vj`` is not on ``vi``'s
+    parent chain.  Comparisons are f32, as on the device."""
+    if not bool(active):
+        return
+    v = int(vi)
+    eps32 = torch.tensor(EPS, dtype=torch.float32)
+    row = pd[v].tolist()
+    in_row = in_tree[pd[v].long()].tolist()
+    for k, vj in enumerate(row):
+        if not in_row[k]:
+            continue
+        dn = pphi[v, k] + d[v]
+        cdel = pdelta[v, k]
+        if not (bool(dn <= d[vj] + eps32) and bool(cdel <= l[vj] - eps32)):
+            continue
+        x = v
+        while x > 0 and x != vj:
+            px = int(p[x])
+            x = 0 if px < 0 else px
+        if x == vj:
+            continue
+        p[vj] = v
+        d[vj] = dn
+        l[vj] = cdel

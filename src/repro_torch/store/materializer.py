@@ -202,6 +202,7 @@ class MaterializationCache:
         self.misses = 0
         self.evictions = 0
         self.invalidations = 0
+        self.purges = 0
 
     # -- fingerprint handling ------------------------------------------------
     def ensure_fingerprint(self, fp: str) -> None:
@@ -213,6 +214,16 @@ class MaterializationCache:
                 self._entries.clear()
                 self.current_bytes = 0
                 self._fp = fp
+
+    def purge(self) -> None:
+        """Drop every entry (repack rewrites chains wholesale; a full purge
+        beats lazily discovering n stale tags one lookup at a time)."""
+        with self._lock:
+            if self._entries:
+                self.purges += 1
+            self._entries.clear()
+            self.current_bytes = 0
+            self._fp = None
 
     # -- lookup / insert -----------------------------------------------------
     def vids(self) -> List[int]:
@@ -264,6 +275,7 @@ class MaterializationCache:
                 "misses": self.misses,
                 "evictions": self.evictions,
                 "invalidations": self.invalidations,
+                "purges": self.purges,
                 "entries": len(self._entries),
                 "current_bytes": self.current_bytes,
                 "budget_bytes": self.budget_bytes,
@@ -389,6 +401,28 @@ class Materializer:
                     ),
                 )
             return out
+
+    def prefetch(self, vids: Sequence[int]) -> int:
+        """Warm the cache with ``vids`` (hottest first); returns trees cached.
+
+        Used after ``repack(use_access_frequencies=True)``: the top-k most
+        accessed versions go straight back into the cache so the first
+        post-repack request for a hot version is already warm.
+        """
+        if self.cache.budget_bytes <= 0:
+            return 0
+        self._cached_vids()  # global mode: rotate the epoch before warming
+        warmed = 0
+        # reversed: LRU evicts oldest inserts first, so load coldest→hottest
+        for vid in reversed(list(vids)):
+            # validated lookup, not bare containment: a stale-tagged entry
+            # must be dropped and re-warmed, not treated as present
+            if self.cache.get(vid, self._entry_fp(vid), count=False) is not None:
+                continue
+            plan = self.planner.plan([vid], cached=self.cache.vids())
+            self._execute(plan)
+            warmed += 1
+        return warmed
 
     def stats(self) -> Dict[str, int]:
         with self._stats_lock:

@@ -11,7 +11,9 @@ verb set —
   materialization layer; ``checkout(ref)`` is byte-identical to
   ``checkout(vid)``;
 * ``log(ref)`` — ancestry walk over the derivation DAG, newest first;
-* ``diff(a, b)`` — leaf-level tree diff (added / removed / changed tensors).
+* ``diff(a, b)`` — leaf-level tree diff (added / removed / changed tensors);
+* ``repack(spec)`` / ``gc()`` — re-optimize physical storage and drop
+  orphaned objects.
 
 Refs persist in the store's ``meta.msgpack`` next to the version metadata,
 in the JAX package's format, so branches and tags survive a close/reopen and
@@ -28,8 +30,11 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..core import OptimizeSpec
 from .delta import FlatTree
-from .version_store import VersionMeta, VersionStore
+from .version_store import _NOT_PORTED, VersionMeta, VersionStore
+
+SERVICE_SLICE = "the service tier (the later slice that brings it and fsck)"
 
 __all__ = ["Repository", "TreeDiff", "Ref"]
 
@@ -245,13 +250,24 @@ class Repository:
         )
 
     # --------------------------------------------------------------- storage
-    def repack(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
-        """Not ported yet; see ``VersionStore.repack``."""
-        return self.store.repack(*args, **kwargs)
+    def repack(
+        self, spec: OptimizeSpec, *, use_access_frequencies: bool = False
+    ) -> Dict[str, Any]:
+        """Re-optimize physical storage against a declarative spec on the
+        store's device (see ``VersionStore.repack``)."""
+        return self.store.repack(
+            spec, use_access_frequencies=use_access_frequencies)
 
     def fsck(self, **kwargs: Any):
         """Not ported yet; see ``VersionStore.fsck``."""
         return self.store.fsck(**kwargs)
+
+    def serve(self, **kwargs: Any) -> Any:
+        """Not ported yet: the asynchronous dataset service tier comes with
+        a later slice of the port."""
+        raise NotImplementedError(
+            _NOT_PORTED.format("Repository.serve", SERVICE_SLICE)
+        )
 
     def gc(self) -> int:
         return self.store.gc()

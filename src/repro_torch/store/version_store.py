@@ -11,6 +11,16 @@ Commit path: a new version is stored as a delta against its first parent's
 payload when that is smaller than storing it whole; the changed-block masks
 run on ``device``.
 
+Repack path: ``build_cost_graph`` measures the Δ/Φ matrix around the
+derivation DAG (cached per content fingerprint in the metadata, in the JAX
+package's format), ``repack`` solves an
+:class:`~repro_torch.core.spec.OptimizeSpec` over it with
+:func:`~repro_torch.core.problems.optimize` on the store's ``device`` (the
+spec's ``backend="torch"`` selects on the card through the segment kernels),
+rewrites storage to match and garbage-collects the orphaned objects.  Given
+the same history and spec it writes the same objects and metadata as the JAX
+package.
+
 Checkout path: every checkout routes through the
 :class:`~repro_torch.store.materializer.Materializer` — a planner that
 compiles one or many requested vids into a topologically ordered decode plan
@@ -30,9 +40,8 @@ allocation and metadata writes are guarded by the store lock.
 Access counts are flushed to the metadata file every ``access_flush_every``
 checkouts and on ``close``, so counts survive a reload.
 
-Storage-graph re-optimization (``build_cost_graph``, ``repack``) and
-``fsck`` need the paper's solvers and the analysis package, which the port
-does not hold yet; they raise ``NotImplementedError``.
+``fsck`` needs the analysis package, which the port does not hold yet; it
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..core import OptimizeSpec, StorageSolution, VersionGraph, optimize
+from ..kernels import resolve_device
 from ..obs.tracer import span as _span
 from . import wire
 from .delta import (
@@ -65,11 +76,10 @@ _NOT_PORTED = (
     "{} is not ported yet: it needs {}, which a later slice of the port "
     "brings; the JAX package's repro.store opens the same root meanwhile"
 )
-_SOLVER_SLICE = (
-    "the paper's storage-graph solvers (repro.core) and the device solver "
-    "backend over the segment_ops kernels (the next slice)"
+FSCK_SLICE = (
+    "the analysis package (the later slice that brings the service tier "
+    "and fsck)"
 )
-_FSCK_SLICE = "the analysis package (the slice with the service tier)"
 
 
 @dataclasses.dataclass
@@ -88,17 +98,42 @@ class VersionMeta:
     content_fp: str = ""                # sha256 of the full (uncompressed) payload
 
 
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The device the store computes on; a CUDA device must exist."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "the store runs its kernels on a CUDA device and none is "
-            "available; pass device='cpu' to run the plain PyTorch versions"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {device}")
-    return device
+class _PayloadProvider:
+    """Lazy edge-payload encoder backing ``repack``.
+
+    Maps ``(src, dst)`` to ``(encoded_payload, stats)`` — a full encoding for
+    ``src == 0``, a delta otherwise — materializing checkouts and encodings
+    on first use only, so ``repack`` encodes just the n−1 edges the solver
+    chose, not every measured candidate pair.  Checkouts go through the
+    store's shared materialization cache; every encoding is memoised in host
+    memory for the provider's lifetime (one repack).
+    """
+
+    def __init__(self, store: "VersionStore") -> None:
+        self._store = store
+        self._memo: Dict[Tuple[int, int], Tuple[bytes, Dict]] = {}
+
+    def flat(self, vid: int) -> FlatTree:
+        return self._store._checkout_flat(vid)
+
+    def full_payload(self, vid: int) -> bytes:
+        return self[(0, vid)][0]
+
+    def __getitem__(self, key: Tuple[int, int]) -> Tuple[bytes, Dict]:
+        if key not in self._memo:
+            src, dst = key
+            if src == 0:
+                self._memo[key] = (encode_full(self.flat(dst)), {})
+            else:
+                # one batched plan: the pair's shared chain prefix is decoded
+                # once even when the cache can't hold it (tiny/zero budgets)
+                src_t, dst_t = self._store.materializer.checkout_many(
+                    [src, dst]
+                )
+                self._memo[key] = encode_delta(
+                    src_t, dst_t, device=self._store.device
+                )
+        return self._memo[key]
 
 
 class VersionStore:
@@ -108,8 +143,10 @@ class VersionStore:
         *,
         device: Union[str, torch.device] = "cuda",
         cost_model: Optional[RecreationCostModel] = None,
+        delta_hops: int = 3,
         cache_budget_bytes: int = 256 << 20,
         access_flush_every: int = 64,
+        prefetch_hot_k: int = 8,
         fuse_chains: bool = True,
         cache_invalidation: str = "chain",
     ) -> None:
@@ -118,14 +155,17 @@ class VersionStore:
         self.root.mkdir(parents=True, exist_ok=True)
         self.objects = ObjectStore(self.root)
         self.cost_model = cost_model or RecreationCostModel()
+        self.delta_hops = delta_hops
         self.versions: Dict[int, VersionMeta] = {}
         self._next_vid = 1
         # guards hot state shared with reader threads: access counts, vid
         # allocation, and metadata writes
         self._lock = threading.RLock()
-        # measured Δ entries of the JAX package's repack, persisted in the
-        # metadata; carried through untouched
+        # measured Δ entries: (src, dst) -> {sfp, dfp, delta, payload_len,
+        # changed_blocks}; persisted in the metadata so repack only
+        # re-measures pairs whose endpoints changed
         self._edge_cache: Dict[Tuple[int, int], Dict[str, Any]] = {}
+        self.last_measured_edges = 0
         # named refs (branches mutable, tags immutable) plus the current
         # branch; owned by the Repository facade, persisted with the metadata
         self.refs: Dict[str, Any] = {"branches": {}, "tags": {}, "head": "main"}
@@ -136,10 +176,15 @@ class VersionStore:
             invalidation=cache_invalidation,
         )
         self.access_flush_every = access_flush_every
+        self.prefetch_hot_k = prefetch_hot_k
         self._unflushed_accesses = 0
         self._storage_fp: Optional[str] = None
-        # the JAX package's record of its last repack; carried through
+        # record of the last repack's spec and outcome, persisted with the
+        # metadata (the JAX package's fsck re-validates it)
         self.last_repack: Optional[Dict[str, Any]] = None
+        # the live (C, R) sampler of the service tier, which the port does
+        # not hold yet: always None here; repack still calls its hook
+        self.tradeoff_monitor: Optional[Any] = None
         self._meta_path = self.root / "meta.msgpack"
         if self._meta_path.exists():
             self._load_meta()
@@ -299,21 +344,253 @@ class VersionStore:
     def storage_bytes(self) -> int:
         return sum(m.stored_bytes for m in self.versions.values())
 
-    # ------------------------------------------------- not in this slice yet
-    def build_cost_graph(self, **kwargs: Any):
-        raise NotImplementedError(
-            _NOT_PORTED.format("VersionStore.build_cost_graph", _SOLVER_SLICE)
-        )
+    # -------------------------------------------------------------- repack
+    def build_cost_graph(
+        self, *, extra_edges: bool = True
+    ) -> Tuple[VersionGraph, _PayloadProvider]:
+        """Measure the Δ/Φ matrices over version-graph-adjacent pairs (plus
+        pairs within ``delta_hops``) and return (graph, payload provider).
 
-    def repack(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
-        raise NotImplementedError(
-            _NOT_PORTED.format("VersionStore.repack", _SOLVER_SLICE)
-        )
+        This is the paper's "revealing entries in the matrix" step: all-pairs
+        is infeasible, so we measure around the derivation structure.
+        Measured entries are cached in the metadata keyed by the endpoints'
+        content fingerprints; unchanged entries are served from the cache
+        without touching payloads.  ``last_measured_edges`` records how many
+        entries were (re)measured by the call.
+        """
+        n = len(self.versions)
+        g = VersionGraph(n, directed=True)
+        provider = _PayloadProvider(self)
+        codec = self.objects.codec
+        measured = 0
 
-    def fsck(self, **kwargs: Any):
-        raise NotImplementedError(
-            _NOT_PORTED.format("VersionStore.fsck", _FSCK_SLICE)
-        )
+        # legacy metas (pre-fingerprint) get their fingerprint backfilled once
+        for vid, meta in self.versions.items():
+            if not meta.content_fp:
+                meta.content_fp = hashlib.sha256(
+                    provider.full_payload(vid)
+                ).hexdigest()
+
+        # adjacency of the derivation DAG (undirected, for the hop ball)
+        adj: Dict[int, set] = {v: set() for v in self.versions}
+        for v, meta in self.versions.items():
+            for p in meta.parents:
+                adj[v].add(p)
+                adj[p].add(v)
+
+        done: set = set()
+        for vid, meta in self.versions.items():
+            fp = meta.content_fp
+            ent = self._edge_cache.get((0, vid))
+            if ent is None or ent["dfp"] != fp:
+                full_payload = provider.full_payload(vid)
+                ent = {
+                    "sfp": "",
+                    "dfp": fp,
+                    "delta": codec.compressed_size(full_payload),
+                    "payload_len": len(full_payload),
+                    "changed_blocks": 0,
+                }
+                self._edge_cache[(0, vid)] = ent
+                measured += 1
+            g.set_materialization(
+                vid, ent["delta"],
+                self.cost_model.phi_full(ent["delta"], meta.raw_bytes),
+            )
+            # hop ball
+            ball = {vid}
+            frontier = {vid}
+            hops = self.delta_hops if extra_edges else 1
+            for _ in range(hops):
+                frontier = {y for x in frontier for y in adj[x]} - ball
+                ball |= frontier
+            for other in sorted(ball - {vid}):
+                if (other, vid) in done:
+                    continue
+                done.add((other, vid))
+                sfp = self.versions[other].content_fp
+                ent = self._edge_cache.get((other, vid))
+                if ent is None or ent["sfp"] != sfp or ent["dfp"] != fp:
+                    payload, stats = provider[(other, vid)]
+                    ent = {
+                        "sfp": sfp,
+                        "dfp": fp,
+                        "delta": codec.compressed_size(payload),
+                        "payload_len": len(payload),
+                        "changed_blocks": stats["changed_blocks"],
+                    }
+                    self._edge_cache[(other, vid)] = ent
+                    measured += 1
+                g.set_delta(
+                    other, vid, ent["delta"],
+                    self.cost_model.phi_delta(
+                        ent["delta"], ent["payload_len"], ent["changed_blocks"]
+                    ),
+                )
+        self.last_measured_edges = measured
+        if measured:
+            self._save_meta()  # persist new measurements for the next call
+        return g, provider
+
+    def access_weights(self) -> Dict[int, float]:
+        """Normalized access-frequency weights (Laplace-smoothed so an
+        unaccessed version still counts) — the workload signal for
+        ``repack(use_access_frequencies=True)``."""
+        total = sum(m.access_count + 1 for m in self.versions.values())
+        return {
+            v: (m.access_count + 1) / total for v, m in self.versions.items()
+        }
+
+    def repack(
+        self, spec: OptimizeSpec, *, use_access_frequencies: bool = False
+    ) -> Dict[str, Any]:
+        """Re-optimize the storage graph against an
+        :class:`~repro_torch.core.spec.OptimizeSpec` and rewrite physical storage
+        to match.
+
+        ``use_access_frequencies=True`` routes the recorded access counts
+        into the spec's ``workload`` field; the spec must name a
+        workload-aware grid point (Problems 3 or 5 — LMG), anything else
+        raises instead of silently dropping the weights.
+
+        The solver runs on the store's ``device``: a spec's default
+        ``backend="torch"`` selects there (the CUDA kernels on a card, their
+        plain versions on the CPU); only ``backend="numpy"`` runs on the host.
+
+        Returns before/after stats, ``gc_freed_bytes`` (orphaned object
+        bytes reclaimed by the gc pass — repack never leaves dangling
+        objects behind), and an ``optimize`` block recording the problem,
+        solver, and backend actually used.
+        """
+        if not isinstance(spec, OptimizeSpec):
+            raise TypeError(
+                f"repack() takes an OptimizeSpec "
+                f"(repro_torch.core.OptimizeSpec.problem(...)), got "
+                f"{type(spec).__name__}"
+            )
+        if not self.versions:
+            # nothing to repack: solvers need ≥1 version and the stats below
+            # take max() over the version set
+            zero = {"storage_bytes": 0, "sum_recreation_s": 0.0,
+                    "max_recreation_s": 0.0}
+            return {"before": dict(zero), "after": dict(zero),
+                    "gc_freed_bytes": 0}
+        if use_access_frequencies:
+            if not spec.supports_workload():
+                raise ValueError(
+                    f"use_access_frequencies=True needs a workload-aware "
+                    f"spec (Problem 3 or 5 — LMG); got {spec.describe()!r}. "
+                    f"The chosen solver would silently ignore the recorded "
+                    f"access counts."
+                )
+            spec = spec.with_workload(self.access_weights())
+        with _span("store.repack", spec=spec.describe()) as rsp:
+            before = {
+                "storage_bytes": self.storage_bytes(),
+                "sum_recreation_s": sum(
+                    self.recreation_cost(v) for v in self.versions
+                ),
+                "max_recreation_s": max(
+                    self.recreation_cost(v) for v in self.versions
+                ),
+            }
+            with _span("store.measure") as msp:
+                g, cache = self.build_cost_graph()
+                if msp:
+                    msp.set(
+                        versions=len(self.versions),
+                        measured_edges=self.last_measured_edges,
+                    )
+            result = optimize(g, spec, device=self.device)
+            with _span("store.apply_solution"):
+                self._apply_solution(result.solution, cache)
+            after = {
+                "storage_bytes": self.storage_bytes(),
+                "sum_recreation_s": sum(
+                    self.recreation_cost(v) for v in self.versions
+                ),
+                "max_recreation_s": max(
+                    self.recreation_cost(v) for v in self.versions
+                ),
+            }
+            with _span("store.gc") as gsp:
+                freed = self.gc()
+                if gsp:
+                    gsp.set(freed_bytes=freed)
+            if rsp:
+                rsp.set(
+                    solver=result.solver,
+                    backend=result.backend_used,
+                    storage_bytes_before=before["storage_bytes"],
+                    storage_bytes_after=after["storage_bytes"],
+                )
+        self.last_repack = {
+            "describe": spec.describe(),
+            "problem": result.problem,
+            "solver": result.solver,
+            "backend": result.backend_used,
+            "objective": spec.objective.metric,
+            "objective_value": float(result.objective_value),
+            "constraints": [
+                {"metric": c.metric, "bound": float(c.bound)}
+                for c in spec.constraints
+            ],
+            "timestamp": time.time(),
+        }
+        self._save_meta()
+        if use_access_frequencies:
+            # warm the cache with the hottest versions under the *new*
+            # storage graph so the first post-repack hit is already served
+            # from memory
+            hot = sorted(
+                self.versions,
+                key=lambda v: self.versions[v].access_count,
+                reverse=True,
+            )[: self.prefetch_hot_k]
+            self.materializer.prefetch(hot)
+        mon = self.tradeoff_monitor
+        if mon is not None:
+            mon.on_repack()
+        return {
+            "before": before,
+            "after": after,
+            "gc_freed_bytes": freed,
+            "optimize": {
+                "problem": result.problem,
+                "solver": result.solver,
+                "backend": result.backend_used,
+                "objective_value": result.objective_value,
+                "wall_time_s": round(result.wall_time_s, 6),
+            },
+        }
+
+    def _apply_solution(self, sol: StorageSolution, cache: _PayloadProvider) -> None:
+        # phase 1: encode every chosen edge against the *old* storage graph
+        # (the provider checkouts must not observe a half-rewritten graph)
+        encoded: Dict[int, Tuple[int, bytes, Optional[Dict]]] = {}
+        for vid, parent in sol.parent.items():
+            payload, stats = cache[(parent, vid)]
+            encoded[vid] = (parent, payload, stats)
+        # phase 2: rewrite objects and metadata atomically w.r.t. checkouts
+        with self._lock:
+            for vid, (parent, payload, stats) in encoded.items():
+                meta = self.versions[vid]
+                key, stored = self.objects.put(payload)
+                if parent == 0:
+                    meta.stored_base = None
+                    meta.phi = self.cost_model.phi_full(stored, meta.raw_bytes)
+                else:
+                    meta.stored_base = parent
+                    meta.phi = self.cost_model.phi_delta(
+                        stored, len(payload), stats["changed_blocks"]
+                    )
+                meta.object_key = key
+                meta.stored_bytes = stored
+            # storage graph rewritten: new epoch, every chain fingerprint is
+            # dead — repack keeps the wholesale purge (append-aware
+            # invalidation only spares *commits* the purge)
+            self._storage_fp = None
+        self.materializer.cache.purge()
 
     def gc(self) -> int:
         """Drop objects not referenced by any version; returns bytes freed."""
@@ -324,6 +601,12 @@ class VersionStore:
                 freed += self.objects.stored_size(key)
                 self.objects.delete(key)
         return freed
+
+    # ---------------------------------------------------------------- fsck
+    def fsck(self, **kwargs: Any):
+        raise NotImplementedError(
+            _NOT_PORTED.format("VersionStore.fsck", FSCK_SLICE)
+        )
 
     # ------------------------------------------------------------ metadata
     def save_refs(self) -> None:

@@ -329,8 +329,10 @@ class TestPortPaths:
             assert (stats["hits"], stats["invalidations"]) == (1, 2)
 
     def test_unported_operations_raise(self, tmp_path):
+        # repack and build_cost_graph are ported (tests/test_torch_repack.py);
+        # fsck and the service tier come with a later slice
         repo = Repository(tmp_path, device="cpu")
-        for call in (repo.repack, repo.fsck, repo.store.build_cost_graph):
+        for call in (repo.fsck, repo.store.fsck, repo.serve):
             with pytest.raises(NotImplementedError, match="later slice"):
                 call()
 
@@ -338,7 +340,9 @@ class TestPortPaths:
 class TestEntryPoints:
     def test_import_leaves_jax_out(self):
         code = (
-            "import sys, repro_torch, repro_torch.store, repro_torch.kernels.ops;"
+            "import sys, repro_torch, repro_torch.store, repro_torch.kernels.ops,"
+            " repro_torch.core, repro_torch.kernels.segment_ops,"
+            " repro_torch.core.solvers.torch_backend;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad"
