@@ -1,9 +1,12 @@
 """PyTorch and CUDA port of the dataset-versioning system (``repro``).
 
 The JAX package ``repro`` is the reference; this package reimplements its
-commit and checkout path on PyTorch, with hand-written CUDA kernels for the
-block-sparse delta path (``repro_torch.kernels``), and reads and writes the
-same on-disk stores (``repro_torch.store``).  It imports neither JAX nor
+commit and checkout path, its solvers and repack, and its dense-LM serving
+path on PyTorch, with hand-written CUDA kernels (``repro_torch.kernels``),
+and reads and writes the same on-disk stores (``repro_torch.store``).  The
+models (``repro_torch.models``, ``repro_torch.configs``) keep the JAX
+package's parameter tree; ``repro_torch.serving`` and
+``repro_torch.launch.serve`` serve them.  It imports neither JAX nor
 anything of ``repro``.  Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """

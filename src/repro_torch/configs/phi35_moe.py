@@ -1,0 +1,19 @@
+"""Phi-3.5-MoE (42B total / 6.6B active) — 16 experts top-2, GQA(kv=8).
+[hf:microsoft/Phi-3.5-MoE-instruct; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=6400,           # per-expert ff width
+    vocab=32064,
+    n_experts=16,
+    top_k=2,
+    expert_d_ff=6400,
+    mlp_kind="swiglu",
+)

@@ -3,7 +3,8 @@
 The kernels are CUDA C++ with a plain C interface, one library per source
 file in ``csrc/`` (``delta_kernels.cu``: the block-sparse delta path;
 ``segment_kernels.cu``: the solvers' segment min/argmin reductions and the
-Modified-Prim re-parenting step).  At first use the package compiles every
+Modified-Prim re-parenting step; ``attention_kernels.cu``: the dense LM's
+prefill attention).  At first use the package compiles every
 source with ``nvcc`` for Hopper (``sm_90a``) into ``build/`` at the root of
 the checkout — one ``nvcc`` process per source, all started together —
 under a file lock, and loads each shared library with ``ctypes``.  A
@@ -11,12 +12,13 @@ library's file name carries a hash of its source, so an edited source is
 rebuilt and a stale library never loads.  A failed build raises.
 
 Every wrapper (:mod:`.block_diff`, :mod:`.sparse_apply`, :mod:`.chain_apply`,
-:mod:`.segment_ops`) dispatches on the device of its tensors: CPU tensors
-take the plain PyTorch version in :mod:`.ref`; CUDA tensors launch the
-kernel or raise.  There is no fallback from one to the other.  No wrapper
-writes into its arguments, except ``mp_reparent``, whose contract is an
-in-place update of the solver's own loop buffers.  Each wrapper counts its
-launches in a plain integer attribute, ``<wrapper>.launches``.
+:mod:`.segment_ops`, :mod:`.flash_attention`) dispatches on the device of
+its tensors: CPU tensors take the plain PyTorch version in :mod:`.ref`;
+CUDA tensors launch the kernel or raise.  There is no fallback from one to
+the other.  No wrapper writes into its arguments, except ``mp_reparent``,
+whose contract is an in-place update of the solver's own loop buffers.
+Each wrapper counts its launches in a plain integer attribute,
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -56,6 +58,12 @@ _ENTRIES = {
         "segment_mp_reparent": [
             _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp,
         ],
+    }),
+    "attention_kernels": ("attention_error_string", {
+        # q, k, v, o; B, Sq, Sk, H, KV, hd; 4 x 3 strides; scale, causal
+        "attention_flash_fwd": (
+            [_i] + [_vp] * 4 + [_ll] * 6 + [_ll] * 12 + [ctypes.c_float, _i, _vp]
+        ),
     }),
 }
 _LIBRARY_OF = {

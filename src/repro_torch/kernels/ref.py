@@ -5,7 +5,8 @@ tensor's backing bytes are viewed as ``(num_blocks, 8, 128)`` int32, one
 4 KiB storage block per row.  The shape is kept from the JAX package (where
 a block is one TPU VMEM tile) so that wire bytes match; on the GPU a block
 is simply 1024 words.  The solver functions reduce padded f32 rows and run
-one Modified-Prim re-parenting step.
+one Modified-Prim re-parenting step.  ``flash_attention_ref`` is the plain
+version of the attention kernel.
 
 These functions are what the kernel wrappers run for CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.  None of them
@@ -14,6 +15,9 @@ solver loop's own ``l`` / ``d`` / ``p`` buffers in place, as its kernel does.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -141,3 +145,58 @@ def mp_reparent_ref(
         p[vj] = v
         d[vj] = dn
         l[vj] = cdel
+
+
+# -------------------------------------------------------------- attention
+#: the masked score; not -inf, so that exp(s - m) of a masked key is 0 and
+#: never NaN (``kernels/flash_attention.py:40`` of the JAX package)
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    softmax_scale: Optional[float] = None,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Forward GQA attention as the JAX package's ``_flash_kernel`` computes
+    it, over ``block_k``-key blocks with an online softmax.
+
+    q    : (B, Sq, H, hd); k, v : (B, Sk, KV, hd), H a multiple of KV
+    Query head ``h`` reads KV head ``h // (H // KV)``.  ``q`` is scaled in
+    f32 and rounded back to its dtype; scores and the running max, sum and
+    output are f32; ``p`` is rounded to ``v``'s dtype before the PV product;
+    the causal mask compares global positions (query ``i`` sees keys
+    ``<= i``) with :data:`NEG_INF`.  Returns (B, Sq, H, hd) in q's dtype.
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    g = H // KV
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    bk = min(block_k, Sk)
+    dev = q.device
+    # (B, KV, g, Sq, hd): one KV head's group of query heads
+    qs = (q.float() * scale).to(q.dtype).float()
+    qs = qs.reshape(B, Sq, KV, g, hd).permute(0, 2, 3, 1, 4)
+    kt = k.float().permute(0, 2, 1, 3)[:, :, None]          # (B, KV, 1, Sk, hd)
+    vt = v.float().permute(0, 2, 1, 3)[:, :, None]
+    q_pos = torch.arange(Sq, device=dev)[:, None]
+    m = torch.full((B, KV, g, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, g, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, g, Sq, hd), dtype=torch.float32, device=dev)
+    for k0 in range(0, Sk, bk):
+        s = qs @ kt[..., k0:k0 + bk, :].transpose(-1, -2)   # (B, KV, g, Sq, bk)
+        if causal:
+            k_pos = torch.arange(k0, min(k0 + bk, Sk), device=dev)[None, :]
+            s = torch.where(k_pos <= q_pos, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p.to(v.dtype).float() @ vt[..., k0:k0 + bk, :]
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)

@@ -1,0 +1,124 @@
+"""Arch registry: one ModelBundle API, as ``repro.models.registry`` has it.
+
+``get_model(cfg)`` returns a bundle of plain functions that the server (and
+later the trainer) share.  Batches are ``{"tokens": (B, S) integer}``.  The
+port runs decoder configs whose blocks are all ``attn`` with a dense MLP;
+the other families raise and name their ROADMAP item.  Sharding axes
+(``param_axes`` / ``cache_axes``) wait for the mesh tooling.
+
+``count_params`` derives N (total and active) analytically from the config,
+a copy of the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from ..configs.base import ModelConfig
+from . import transformer as tf
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ModelConfig
+    init: Callable[..., Any]             # (generator, device="cuda") -> params
+    train_logits: Callable[..., Any]     # (params, batch) -> (logits, aux)
+    train_hidden: Callable[..., Any]     # (params, batch) -> (hidden, aux)
+    head: Callable[..., Any]             # (params, hidden) -> logits
+    init_cache: Callable[..., Any]       # (batch, max_len, device="cuda") -> cache
+    prefill: Callable[..., Any]          # (params, batch, cache) -> (logits, cache)
+    decode_step: Callable[..., Any]      # (params, token, cache, pos) -> ...
+
+
+def _unported(cfg: ModelConfig) -> str:
+    """The reason the port cannot run ``cfg`` yet, or ''."""
+    if cfg.is_encdec:
+        return "encoder-decoder models wait for the enc-dec family"
+    if cfg.n_experts:
+        return "MoE models wait for the MoE family"
+    kinds = sorted(set(cfg.blocks()) - {"attn"})
+    if kinds:
+        return f"{'/'.join(kinds)} blocks wait for their family"
+    return ""
+
+
+def get_model(cfg: ModelConfig) -> ModelBundle:
+    why = _unported(cfg)
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: {why} (ROADMAP Queue 1, other model families); the "
+            "port runs dense decoder LMs"
+        )
+    return ModelBundle(
+        cfg=cfg,
+        init=lambda generator, device="cuda": tf.init_params(cfg, generator, device),
+        train_logits=lambda p, batch: tf.forward_train(
+            cfg, p, batch["tokens"], inputs_embeds=batch.get("inputs_embeds")),
+        train_hidden=lambda p, batch: tf.forward_hidden(
+            cfg, p, batch["tokens"], inputs_embeds=batch.get("inputs_embeds")),
+        head=lambda p, h: tf.lm_logits(cfg, p, h),
+        init_cache=lambda batch, max_len, device="cuda": tf.init_cache(
+            cfg, batch, max_len, device),
+        prefill=lambda p, batch, cache: tf.prefill(
+            cfg, p, batch["tokens"], cache, inputs_embeds=batch.get("inputs_embeds")),
+        decode_step=lambda p, tok, cache, pos: tf.decode_step(cfg, p, tok, cache, pos),
+    )
+
+
+# --------------------------------------------------------------- param count
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    D, V, H, KV = cfg.d_model, cfg.vocab, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    total = V * D  # embedding
+    if not cfg.tie_embeddings:
+        total += D * V
+
+    def attn_p() -> int:
+        return D * H * hd + 2 * D * KV * hd + H * hd * D
+
+    def mla_p() -> int:
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        rd, nd, vd = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
+        return (D * qr + qr * H * (nd + rd) + D * (kvr + rd)
+                + kvr * H * (nd + vd) + H * vd * D)
+
+    def mlp_p() -> int:
+        return (3 if cfg.mlp_kind == "swiglu" else 2) * D * cfg.d_ff
+
+    def moe_p(active: bool) -> int:
+        E, K, Fe = cfg.n_experts, cfg.top_k, cfg.expert_d_ff
+        routed = (K if active else E) * 3 * D * Fe
+        shared = cfg.n_shared_experts * 3 * D * Fe
+        return D * E + routed + shared
+
+    def rglru_p() -> int:
+        W = cfg.lru_width
+        return 3 * D * W + cfg.conv_width * W + 5 * W
+
+    def rwkv_p() -> int:
+        sl, dl = cfg.rwkv_shift_lora, cfg.rwkv_decay_lora
+        time = 5 * D * D + D * 5 * sl + 5 * sl * D + D * dl + dl * D
+        ffn = 2 * D * cfg.d_ff + D * D
+        return time + ffn
+
+    for i, kind in enumerate(cfg.blocks()):
+        if kind == "attn":
+            total += attn_p()
+        elif kind == "mla":
+            total += mla_p()
+        elif kind == "rglru":
+            total += rglru_p()
+        elif kind == "rwkv":
+            total += rwkv_p()
+            continue  # rwkv includes its ffn
+        if cfg.layer_uses_moe(i):
+            total += moe_p(active_only)
+        else:
+            total += mlp_p()
+    if cfg.is_encdec:
+        total += cfg.enc_layers * (attn_p() + mlp_p())
+        total += cfg.n_layers * attn_p()  # cross-attention stacks
+    if cfg.mtp:
+        total += 2 * D * D + attn_p() + mlp_p()
+    return int(total)

@@ -1,0 +1,262 @@
+"""The port's dense LM (layers, GQA attention, the whole model) against the
+JAX package's, on the CPU.
+
+Both packages compute from the same numpy inputs and the same weights: the
+JAX package's ``init`` draws them and ``params_from_numpy`` carries them
+into the port.  The four dense configs run at their ``reduced()`` size
+(minicpm-2b: MHA, tied embeddings; minitron-4b; starcoder2-7b: GELU;
+qwen3-32b: qk-norm).  The port's attention takes the flash path wherever
+the JAX opt-in path would (here through its plain version); the JAX side
+runs with ``REPRO_FLASH_ATTN=1`` (its Pallas kernel in interpret mode) and
+without it (its chunked softmax).  Tolerances: 2e-2 for prefill and
+teacher-forcing logits and 5e-2 for decode logits, as in
+tests/test_arch_smoke.py; 1e-2 relative (about one bf16 rounding step of
+2**-8, with f32 math ordered differently) for single layers.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.models import attention as jax_attention
+from repro.models import get_model as jax_get_model
+from repro.models import layers as jax_layers
+from repro.models import transformer as jax_tf
+from repro_torch.configs import ARCHS
+from repro_torch.models import count_params, get_model
+from repro_torch.models import attention as port_attention
+from repro_torch.models import layers as port_layers
+from repro_torch.models import transformer as port_tf
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
+
+DENSE = ["minicpm-2b", "minitron-4b", "starcoder2-7b", "qwen3-32b"]
+B, S = 2, 128          # S a multiple of 128: the prefill takes the flash path
+LAYER_TOL = dict(rtol=1e-2, atol=1e-5)
+
+
+def bf16(rng, *shape, scale=1.0):
+    """The same bf16 values as a JAX array and as a CPU tensor."""
+    a = np.asarray(jnp.asarray(rng.randn(*shape) * scale, jnp.bfloat16))
+    return jnp.asarray(a), torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+
+
+def f32(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def close(got, want, **tol):
+    np.testing.assert_allclose(f32(got), f32(want), **tol)
+
+
+# -------------------------------------------------------------------- layers
+class TestLayers:
+    def test_rms_norm(self):
+        rng = np.random.RandomState(0)
+        (xj, xt), (sj, st) = bf16(rng, 2, 8, 64), bf16(rng, 64, scale=0.1)
+        close(port_layers.rms_norm(xt, st, 1e-6), jax_layers.rms_norm(xj, sj, 1e-6), **LAYER_TOL)
+
+    def test_rope(self):
+        rng = np.random.RandomState(1)
+        pos = np.arange(128)
+        cj, sj = jax_layers.rope_table(jnp.asarray(pos), 32, 1e4)
+        ct, st = port_layers.rope_table(torch.from_numpy(pos), 32, 1e4)
+        close(ct, cj, atol=1e-5)
+        close(st, sj, atol=1e-5)
+        xj, xt = bf16(rng, 2, 128, 4, 32)
+        close(port_layers.apply_rope(xt, ct, st), jax_layers.apply_rope(xj, cj, sj), **LAYER_TOL)
+        # per-batch tables (B, S, hd/2)
+        cj3, sj3 = jax_layers.rope_table(jnp.asarray(np.stack([pos, pos + 7])), 32, 1e6)
+        ct3, st3 = port_layers.rope_table(torch.from_numpy(np.stack([pos, pos + 7])), 32, 1e6)
+        close(port_layers.apply_rope(xt, ct3, st3), jax_layers.apply_rope(xj, cj3, sj3),
+              **LAYER_TOL)
+
+    @pytest.mark.parametrize("kind", ["swiglu", "gelu"])
+    def test_mlp(self, kind):
+        rng = np.random.RandomState(2)
+        xj, xt = bf16(rng, 2, 16, 64)
+        names = ("w_gate", "w_up", "w_down") if kind == "swiglu" else ("w_in", "w_out")
+        shapes = {"w_gate": (64, 96), "w_up": (64, 96), "w_down": (96, 64),
+                  "w_in": (64, 96), "w_out": (96, 64)}
+        pj, pt = {}, {}
+        for n in names:
+            pj[n], pt[n] = bf16(rng, *shapes[n], scale=0.1)
+        fj = jax_layers.mlp_swiglu if kind == "swiglu" else jax_layers.mlp_gelu
+        ft = port_layers.mlp_swiglu if kind == "swiglu" else port_layers.mlp_gelu
+        close(ft(xt, pt), fj(xj, pj), rtol=2e-2, atol=2e-2)
+
+    @pytest.mark.parametrize("case", [
+        # Sq, Sk, KV, causal, chunk, kv_len, q_offset
+        (64, 64, 2, True, 32, None, 0),      # prefill, two chunks
+        (48, 80, 1, True, 32, None, 32),     # chunked prefill: an offset, a ragged last chunk
+        (64, 64, 4, False, 64, 50, 0),       # non-causal over a ragged cache
+        (1, 96, 2, False, 1024, 37, 0),      # decode: one softmax over the cache
+        (1, 96, 2, True, 1024, None, 40),    # decode, causal at an offset
+    ])
+    def test_chunked_attention(self, case):
+        Sq, Sk, KV, causal, chunk, kv_len, q_offset = case
+        rng = np.random.RandomState(3)
+        (qj, qt), (kj, kt), (vj, vt) = (bf16(rng, 2, Sq, 4, 32), bf16(rng, 2, Sk, KV, 32),
+                                        bf16(rng, 2, Sk, KV, 32))
+        want = jax_layers.chunked_attention(qj, kj, vj, causal=causal, chunk=chunk,
+                                            kv_len=kv_len, q_offset=q_offset)
+        got = port_layers.chunked_attention(qt, kt, vt, causal=causal, chunk=chunk,
+                                            kv_len=kv_len, q_offset=q_offset)
+        assert got.dtype == torch.bfloat16
+        close(got, want, rtol=2e-2, atol=2e-2)
+
+
+# ----------------------------------------------------------------- GQA block
+@pytest.fixture(scope="module")
+def qwen_layer():
+    """One attention layer of reduced qwen3-32b (qk-norm), both packages."""
+    cfg_j = JAX_ARCHS["qwen3-32b"].reduced()
+    p = jax.tree.map(np.asarray, jax_tf.block_init(cfg_j, "attn", False, jax.random.PRNGKey(3)))
+    return cfg_j, ARCHS["qwen3-32b"].reduced(), p
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["jax-flash", "jax-chunked"])
+def test_gqa_prefill_then_decode(qwen_layer, monkeypatch, flash):
+    if flash:
+        monkeypatch.setenv("REPRO_FLASH_ATTN", "1")
+    else:
+        monkeypatch.delenv("REPRO_FLASH_ATTN", raising=False)
+    cfg_j, cfg_t, p_np = qwen_layer
+    pj = jax.tree.map(jnp.asarray, p_np)
+    pt = params_from_numpy(p_np, device="cpu")
+    rng = np.random.RandomState(4)
+    xj, xt = bf16(rng, B, S, cfg_t.d_model)
+    cache_j = jax_attention.gqa_init_cache(cfg_j, B, S + 4)
+    cache_t = port_attention.gqa_init_cache(cfg_t, B, S + 4, device="cpu")
+    # jitted (one compile, not one per op), traced under this test's setting
+    out_j, cache_j = jax.jit(lambda p, x, c: jax_attention.gqa_prefill(cfg_j, p, x, c))(
+        pj, xj, cache_j)
+    out_t, cache_t2 = port_attention.gqa_prefill(cfg_t, pt, xt, cache_t)
+    assert cache_t2 is cache_t  # written in place
+    close(out_t, out_j, rtol=2e-2, atol=2e-2)
+    for name in ("k", "v"):
+        close(cache_t[name], cache_j[name], rtol=2e-2, atol=2e-2)
+    tj, tt = bf16(rng, B, 1, cfg_t.d_model)
+    dec_j, cache_j = jax.jit(lambda p, x, c: jax_attention.gqa_decode(cfg_j, p, x, c, S))(
+        pj, tj, cache_j)
+    dec_t, _ = port_attention.gqa_decode(cfg_t, pt, tt, cache_t, S)
+    close(dec_t, dec_j, rtol=5e-2, atol=5e-2)
+    for name in ("k", "v"):
+        close(cache_t[name], cache_j[name], rtol=2e-2, atol=2e-2)
+    fwd_j = jax.jit(lambda p, x: jax_attention.gqa_forward(cfg_j, p, x))(pj, xj)
+    close(port_attention.gqa_forward(cfg_t, pt, xt), fwd_j, rtol=2e-2, atol=2e-2)
+
+
+def test_unported_attention_raises(qwen_layer):
+    _, cfg_t, p_np = qwen_layer
+    pt = params_from_numpy(p_np, device="cpu")
+    x = torch.zeros((1, 8, cfg_t.d_model), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_attention.gqa_forward(cfg_t, pt, x, window=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_attention.gqa_forward(cfg_t, pt, x, cross_kv=(x, x))
+
+
+# ---------------------------------------------------------------- the model
+@pytest.fixture(scope="module", params=DENSE)
+def arch(request):
+    """(JAX config, port config, JAX bundle, JAX params as numpy, port params)."""
+    cfg_j = JAX_ARCHS[request.param].reduced()
+    model = jax_get_model(cfg_j)
+    p_np = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
+    cfg_t = ARCHS[request.param].reduced()
+    return cfg_j, cfg_t, model, p_np, params_from_numpy(p_np, device="cpu")
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["jax-flash", "jax-chunked"])
+def test_model_matches_jax(arch, monkeypatch, flash):
+    """forward_train, prefill and one decode step, same weights and tokens."""
+    if flash:
+        monkeypatch.setenv("REPRO_FLASH_ATTN", "1")
+    else:
+        monkeypatch.delenv("REPRO_FLASH_ATTN", raising=False)
+    cfg_j, cfg_t, model, p_np, pt = arch
+    port = get_model(cfg_t)
+    pj = jax.tree.map(jnp.asarray, p_np)
+    rng = np.random.RandomState(5)
+    tokens = rng.randint(0, cfg_t.vocab, (B, S)).astype(np.int32)
+    nxt = rng.randint(0, cfg_t.vocab, (B, 1)).astype(np.int32)
+    tok_t, nxt_t = torch.from_numpy(tokens).long(), torch.from_numpy(nxt).long()
+
+    # fresh jit wrappers: each traces under this test's REPRO_FLASH_ATTN
+    logits_j, _ = jax.jit(lambda p, b: model.train_logits(p, b))(pj, {"tokens": tokens})
+    logits_t, _ = port.train_logits(pt, {"tokens": tok_t})
+    assert tuple(logits_t.shape) == (B, S, cfg_t.padded_vocab)
+    close(logits_t, logits_j, rtol=2e-2, atol=2e-2)
+
+    pre_j, cache_j = jax.jit(lambda p, b, c: model.prefill(p, b, c))(
+        pj, {"tokens": tokens}, model.init_cache(B, S + 8))
+    pre_t, cache_t = port.prefill(pt, {"tokens": tok_t}, port.init_cache(B, S + 8, device="cpu"))
+    close(pre_t, pre_j, rtol=2e-2, atol=2e-2)
+
+    dec_j, _ = jax.jit(lambda p, t, c: model.decode_step(p, t, c, S))(pj, nxt, cache_j)
+    dec_t, _ = port.decode_step(pt, nxt_t, cache_t, S)
+    close(dec_t, dec_j, rtol=5e-2, atol=5e-2)
+
+
+def test_prefill_then_decode_matches_forward(arch):
+    """The port's cache path against its own teacher forcing (as
+    tests/test_arch_smoke.py holds the JAX package's)."""
+    _, cfg_t, _, _, pt = arch
+    port = get_model(cfg_t)
+    rng = np.random.RandomState(6)
+    tokens = torch.from_numpy(rng.randint(0, cfg_t.vocab, (B, S + 1))).long()
+    full, _ = port.train_logits(pt, {"tokens": tokens})
+    pre, cache = port.prefill(pt, {"tokens": tokens[:, :S]}, port.init_cache(B, S + 8, device="cpu"))
+    close(pre[:, -1], full[:, S - 1], rtol=2e-2, atol=2e-2)
+    dec, _ = port.decode_step(pt, tokens[:, S:], cache, S)
+    close(dec[:, -1], full[:, S], rtol=5e-2, atol=5e-2)
+
+
+def test_params_round_trip_bit_for_bit(arch):
+    _, _, _, p_np, pt = arch
+    back = params_to_numpy(pt)
+    want, want_def = jax.tree.flatten(p_np)
+    got, got_def = jax.tree.flatten(back)
+    assert got_def == want_def
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+
+
+def test_init_params_tree_matches_jax(arch):
+    """The port's init draws the JAX tree's shapes and dtypes, on the
+    caller's device from the caller's generator, with the stds of _nrm."""
+    cfg_j, cfg_t, _, p_np, _ = arch
+    gen = torch.Generator().manual_seed(0)
+    pt = get_model(cfg_t).init(gen, device="cpu")
+    want = jax.tree.map(lambda a: (a.shape, str(a.dtype)), p_np)
+    got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+                       params_to_numpy(pt))
+    assert got == want
+    assert abs(float(pt["embed"].float().std()) - 0.02) < 2e-3
+    norms = sum(t.numel() for k, t in pt["segments"][0][0].items() if "norm" in k)
+    total = sum(t.numel() for t in jax.tree.leaves(
+        jax.tree.map(lambda t: t, pt, is_leaf=lambda x: isinstance(x, torch.Tensor))))
+    assert total - norms - pt["final_norm"].numel() == count_params(cfg_t)
+
+
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "rwkv6-3b",
+                                  "recurrentgemma-9b", "seamless-m4t-medium"])
+def test_other_families_raise(name):
+    if name not in ARCHS:
+        pytest.fail(f"{name} is not an arch: {sorted(ARCHS)}")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(ARCHS[name])
+
+
+def test_default_device_raises_without_cuda(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs")
+    _, cfg_t, _, _, _ = arch
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_tf.init_params(cfg_t, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model(cfg_t).init_cache(1, 8)

@@ -342,7 +342,10 @@ class TestEntryPoints:
         code = (
             "import sys, repro_torch, repro_torch.store, repro_torch.kernels.ops,"
             " repro_torch.core, repro_torch.kernels.segment_ops,"
-            " repro_torch.core.solvers.torch_backend;"
+            " repro_torch.core.solvers.torch_backend, repro_torch.configs,"
+            " repro_torch.models, repro_torch.models.convert,"
+            " repro_torch.kernels.flash_attention, repro_torch.serving,"
+            " repro_torch.launch, repro_torch.launch.serve;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad"
