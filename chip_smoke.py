@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's store, solver and LM-serving paths on one NVIDIA GPU.
+"""Drive the PyTorch port's store, service, solver and LM-serving paths on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -15,6 +15,10 @@ use (into ``build/``).  Phases:
     (edge cases too: duplicate rows across and within chain steps, padding,
     an empty chain).  Each is timed beside its plain version, its bound and,
     for the sparse scatter, ``torch.index_copy`` as the library yardstick.
+    The XOR delta and the block hash are held the same way at one 128 MiB
+    leaf and at 1, 255 and 257 blocks of full-range int32 data (the hash
+    must wrap mod 2**32), on equal inputs (a zero delta) and for
+    self-inversion, and timed; the XOR beside ``torch.bitwise_xor``.
 (b) Commits.  A ``Repository`` in a temporary directory under ``build/``
     takes a dataset of ~509 MiB per version (six leaves, six dtypes, one
     leaf whose size is not a multiple of 4 KiB, three leaves of equal block
@@ -73,16 +77,35 @@ use (into ``build/``).  Phases:
     teacher forcing (see ``teacher_force``), and one prefill and one decode
     step run under torch.profiler.
 
+(i) The dataset service.  A ``Repository`` on the card of 64 versions of
+    ~16 MiB (phase (b)'s leaves cut to 1/32; a branch every 4 commits; a
+    cache of 8 versions) is served through ``repo.serve(readers=4,
+    batch_window_s=0.002, fsck_interval_s=5, fsck_sample=4)`` under an
+    enabled tracer: a closed-loop warm-up measures the throughput, then 300
+    open-loop zipfian requests (s = 1.1, 8% commits) arrive at half that
+    rate, with a Problem 6 repack midway that must run on the card.  Every
+    served tree is compared with host ground truth (a sha256 per leaf); a
+    final ``svc.fsck()`` must report no gating finding; the exported Chrome
+    trace must validate.  It prints p50/p99 latency, QPS, the coalescing,
+    batching and warm-hit counters, the tradeoff monitor's last sample, the
+    span-versus-track reconciliation and the device idle share.
+(j) The XOR and hash ops on the main path's data: for every leaf of phase
+    (b)'s main tip and its parent, ``ops.xor_apply(parent,
+    ops.xor_encode(parent, tip))`` must equal the tip byte for byte,
+    ``ops.block_hashes(tip)`` its plain version, and every block the
+    changed-block mask marks unchanged must hash alike in both versions.
+
 Phases (e) and (h)'s kernel checks run right after (a), so that every
 kernel is checked before the main path starts.  The launch counters of the
 kernels are set to 0 before each main-path phase and read after it; a
 kernel its phase should use that launched no time fails the run, as does
-any mismatch.  Phases (b), (c), (f), (g) and (h)'s requests are the main
-path; the launches of the kernel checks, which compare kernels with their
-plain versions, are not counted.  ``--only LETTERS`` runs a subset (a
-development aid; it prints no result line).  The last lines are the card's
-name and power limit (``nvidia-smi``), one JSON object with each kernel's
-numbers, and the result line ``{"ok": true, "device": {...}}``.
+any mismatch.  Phases (b), (c), (f), (g), (i), (j) and (h)'s requests are
+the main path ((j) runs after (d), on (b)'s ground truth); the launches of
+the kernel checks, which compare kernels with their plain versions, are not
+counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
+result line).  The last lines are the card's name and power limit
+(``nvidia-smi``), one JSON object with each kernel's numbers, and the
+result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -117,7 +140,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefgh"
+PHASES = "abcdefghij"
 
 
 def log(msg: str) -> None:
@@ -130,12 +153,12 @@ def check(cond: bool, msg: str) -> None:
 
 
 # ------------------------------------------------------------------ dataset
-def make_dataset(rng: np.random.Generator) -> dict:
+def make_dataset(rng: np.random.Generator, leaves: dict = LEAVES) -> dict:
     """Host ground truth: name -> numpy array (bfloat16 held as uint16)."""
     import torch
 
     out = {}
-    for name, (dtype, shape) in LEAVES.items():
+    for name, (dtype, shape) in leaves.items():
         n = int(np.prod(shape))
         if dtype == "bfloat16":
             f = torch.from_numpy(rng.standard_normal(n, dtype=np.float32))
@@ -162,17 +185,21 @@ def edit_blocks(rng: np.random.Generator, arr: np.ndarray) -> np.ndarray:
     return new
 
 
-def as_payload(tree: dict) -> dict:
-    """Nested payload of tensors sharing the ground truth's memory."""
+def leaf_tensor(name: str, arr: np.ndarray):
+    """A ground-truth leaf as a tensor sharing its memory (bfloat16 leaves
+    are held as uint16 on the host)."""
     import torch
 
+    t = torch.from_numpy(arr)
+    return t.view(torch.bfloat16) if LEAVES[name][0] == "bfloat16" else t
+
+
+def as_payload(tree: dict) -> dict:
+    """Nested payload of tensors sharing the ground truth's memory."""
     payload: dict = {}
     for name, arr in tree.items():
-        t = torch.from_numpy(arr)
-        if LEAVES[name][0] == "bfloat16":
-            t = t.view(torch.bfloat16)
         group, leaf = name.split("/")
-        payload.setdefault(group, {})[leaf] = t
+        payload.setdefault(group, {})[leaf] = leaf_tensor(name, arr)
     return payload
 
 
@@ -365,10 +392,73 @@ def kernel_checks(dev) -> list:
     del bases, cblocks, got
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    results += block_op_checks(dev, rand_blocks, nb)
     for r in results:
         log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']} ms {r['ms']:.6f} "
             f"plain_ms {r['plain_ms']:.6f} bound_ms {r['bound_ms']:.6f} "
             f"library_ms {r['library_ms']}")
+    return results
+
+
+def block_op_checks(dev, rand_blocks, nb: int) -> list:
+    """Phase (a), the XOR delta and the block hash: bit for bit against
+    their plain versions at one 128 MiB leaf (``nb`` blocks) and at 1, 255
+    and 257 blocks, on full-range int32 data; equal inputs, self-inversion,
+    a hash that must wrap; neither wrapper writes into its arguments."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_diff import block_hash, hash_coefficients
+    from repro_torch.kernels.xor_delta import xor_delta
+
+    coef = torch.from_numpy(hash_coefficients()).to(dev)
+    xor_err = hash_err = 0.0
+    for n in (nb, 1, 255, 257):
+        a, b = rand_blocks(n), rand_blocks(n)
+        a0, b0 = a.clone(), b.clone()
+        d = xor_delta(a, b)
+        xor_err = max(xor_err, max_abs_err(d, ref.xor_delta_ref(a, b)))
+        check(torch.equal(xor_delta(a, d), b), f"xor_delta: a ^ (a ^ b) != b at {n} blocks")
+        check(not bool(xor_delta(a, a.clone()).any()), f"xor_delta: a ^ a != 0 at {n} blocks")
+        h = block_hash(a, coef)
+        hash_err = max(hash_err, max_abs_err(h, ref.block_hash_ref(a, coef)))
+        check(torch.equal(a, a0) and torch.equal(b, b0),
+              f"xor_delta / block_hash wrote into an argument at {n} blocks")
+        check(d.data_ptr() not in (a.data_ptr(), b.data_ptr()), "xor_delta aliased an argument")
+    check(xor_err == 0, "xor_delta disagrees with its plain version")
+    check(hash_err == 0, "block_hash disagrees with its plain version")
+    # full-range data: the exact sums (Python integers) leave int32, so the
+    # hash must be their wrap mod 2**32
+    exact = (a.cpu().numpy().astype(object) * coef.cpu().numpy().astype(object)).sum(axis=(1, 2))
+    wrapped = sum(1 for e in exact if not -(2**31) <= e < 2**31)
+    want = [((int(e) + 2**31) % 2**32) - 2**31 for e in exact]
+    check(wrapped > 0 and block_hash(a, coef)[:, 0].tolist() == want,
+          "block_hash: the sums of full-range data do not wrap mod 2**32")
+    log(f"phase a: block_hash wrapped {wrapped} of {a.shape[0]} exact block sums")
+
+    a, b = rand_blocks(nb), rand_blocks(nb)
+    results = [{
+        "name": "xor_delta", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_kernels.cu",
+        "replaces": "src/repro/kernels/xor_delta.py:31",
+        "max_abs_err": xor_err,
+        "ms": cuda_ms(lambda: xor_delta(a, b)),
+        "plain_ms": cuda_ms(lambda: ref.xor_delta_ref(a, b)),
+        "bound_ms": bound_ms(3 * nb * BLOCK), "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.bitwise_xor(a, b)),
+    }, {
+        "name": "block_hash", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_kernels.cu",
+        "replaces": "src/repro/kernels/block_diff.py:69",
+        "max_abs_err": hash_err,
+        "ms": cuda_ms(lambda: block_hash(a, coef)),
+        "plain_ms": cuda_ms(lambda: ref.block_hash_ref(a, coef)),
+        "bound_ms": bound_ms(nb * BLOCK + BLOCK + nb * 4), "bound_by": "bytes",
+        "library_ms": None,
+    }]
+    del a, b
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return results
 
 
@@ -383,6 +473,7 @@ class Counters:
             flash_attention,
             segment_ops,
             sparse_apply,
+            xor_delta,
         )
 
         self.fns = {
@@ -395,6 +486,8 @@ class Counters:
             "min_argmin_1d": [segment_ops.min_argmin_1d],
             "mp_reparent": [segment_ops.mp_reparent],
             "flash_attention": [flash_attention.flash_attention],
+            "xor_delta": [xor_delta.xor_delta],
+            "block_hash": [block_diff.block_hash],
         }
         self.total = {name: 0 for name in self.fns}
 
@@ -445,6 +538,8 @@ def drive_commits(root: Path, counters: Counters, device: str = "cuda") -> dict:
         if i == FORK_AT:
             fork_tree, fork_vid = tree, vid
             truth["mid"] = (vid, tree)
+        if i == MAIN_COMMITS - 1:
+            truth["main^"] = (vid, tree)  # the tip's parent, for phase (j)
     truth["main"] = ("main", tree)
     repo.branch("dev", at=fork_vid)
     tree = fork_tree
@@ -565,6 +660,50 @@ def breakdown(root: Path, truth: dict, device: str = "cuda") -> None:
             log(f"phase d:   device {sec:.6f} s  {name[:90]}")
     else:
         log("phase d: device busy time not measured (the profiler saw no device events)")
+
+
+# -------------------------------------------------- (j) XOR delta, block hash
+def drive_block_ops(truth: dict, counters: Counters, device: str = "cuda") -> None:
+    """Phase (j): the XOR and hash ops on the main path's data.  For every
+    leaf of phase (b)'s main tip and its parent, uploaded from host ground
+    truth: the XOR delta of parent and tip applied to the parent must give
+    the tip byte for byte; the tip's block hashes must equal the plain
+    version's; every block the changed-block mask marks unchanged must hash
+    alike in both versions."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.block_diff import changed_block_mask, hash_coefficients
+
+    parent, tip = truth["main^"][1], truth["main"][1]
+    check(sorted(parent) == sorted(tip), "phase j: parent and tip hold different leaves")
+    coef = torch.from_numpy(hash_coefficients()).to(device)
+    counters.zero()
+    t0 = time.perf_counter()
+    changed_total = 0
+    for name in sorted(tip):
+        pb, meta = ops.to_blocks(leaf_tensor(name, parent[name]).to(device))
+        tb, _ = ops.to_blocks(leaf_tensor(name, tip[name]).to(device))
+        d = ops.xor_encode(pb, tb)
+        back = ops.from_blocks(ops.xor_apply(pb, d), meta)
+        want = np.ascontiguousarray(tip[name]).reshape(-1).view(np.uint8)
+        check(np.array_equal(back.cpu().reshape(-1).view(torch.uint8).numpy(), want),
+              f"phase j: {name}: xor_apply(parent, xor_encode(parent, tip)) != tip")
+        ht, hp = ops.block_hashes(tb), ops.block_hashes(pb)
+        check(torch.equal(ht, ref.block_hash_ref(tb, coef)[:, 0]),
+              f"phase j: {name}: block_hashes differ from the plain version")
+        same = changed_block_mask(pb, tb)[:, 0] == 0
+        check(torch.equal(ht[same], hp[same]),
+              f"phase j: {name}: an unchanged block hashes differently")
+        changed = int((~same).sum())
+        changed_total += changed
+        log(f"phase j: {name}: {tb.shape[0]} blocks, {changed} changed, "
+            f"{int((d != 0).flatten(1).any(dim=1).sum())} with a nonzero XOR delta, "
+            f"{int(torch.unique(ht).numel())} distinct hashes")
+    sync(device)
+    log(f"phase j: {len(tip)} leaves round-tripped through the XOR delta and "
+        f"hashed in {time.perf_counter() - t0:.3f} s ({changed_total} changed blocks)")
+    counters.read("phase j (XOR delta and block hashes)", ("xor_delta", "block_hash"))
 
 
 # ------------------------------------------------- (e) segment kernel checks
@@ -1026,6 +1165,258 @@ def drive_repack(root: Path, counters: "Counters", device: str = "cuda") -> dict
     return out
 
 
+# ------------------------------------------------ (i) the dataset service
+# phase (b)'s six leaves at their dtypes, each cut to 1/32 of its rows:
+# ~16 MiB a version (see drive_service for why not larger)
+SERVICE_LEAVES = {name: (dtype, (shape[0] // 32,) + shape[1:])
+                  for name, (dtype, shape) in LEAVES.items()}
+SERVICE_VERSIONS = 64
+SERVICE_BRANCH_EVERY = 4     # every 4th commit forks a branch
+SERVICE_CACHE_VERSIONS = 8   # cache budget, in versions
+SERVICE_REQUESTS = 300       # open-loop requests
+SERVICE_WRITE_SHARE = 0.08   # of them commits
+SERVICE_ZIPF_S = 1.1         # as benchmarks/serving_checkout.py
+SERVICE_WARMUP = 64          # closed-loop warm-up requests ...
+SERVICE_CLIENTS = 8          # ... from this many clients
+
+
+def leaf_digest(t) -> tuple:
+    """(shape, itemsize, sha256) of a leaf: a host tensor or a host array."""
+    import hashlib
+
+    import torch
+
+    if isinstance(t, torch.Tensor):
+        raw = t.contiguous().reshape(-1).view(torch.uint8).numpy()
+        return tuple(t.shape), t.element_size(), hashlib.sha256(raw).hexdigest()
+    raw = np.ascontiguousarray(t).reshape(-1).view(np.uint8)
+    return t.shape, t.itemsize, hashlib.sha256(raw).hexdigest()
+
+
+def zipf_reads(vids: list, n: int, rng: np.random.RandomState) -> list:
+    """Zipfian reads (benchmarks/serving_checkout.py:zipf_requests): rank r
+    of a seeded permutation of ``vids`` gets p proportional to 1 / r**s."""
+    ranked = rng.permutation(vids)
+    p = 1.0 / np.arange(1, len(ranked) + 1) ** SERVICE_ZIPF_S
+    return [int(v) for v in rng.choice(ranked, size=n, p=p / p.sum())]
+
+
+def drive_service(root: Path, counters: Counters, device: str = "cuda") -> dict:
+    """Phase (i): the asynchronous dataset service over a store on the card.
+
+    A ``Repository`` of 64 versions (phase (b)'s leaves cut to 1/32, a
+    branch every 4 commits, a cache of 8 versions) is served through
+    ``repo.serve(readers=4, batch_window_s=0.002, fsck_interval_s=5,
+    fsck_sample=4)`` under an enabled tracer.  A closed-loop warm-up (8
+    clients) measures the throughput; then 300 open-loop requests arrive as
+    a Poisson process at half that rate, zipfian reads (s = 1.1) over the
+    64 versions and 8% commits.  Midway, with the first half's requests
+    still in flight, ``svc.repack(OptimizeSpec.problem(6, theta))`` takes
+    the writer side (the schedule pauses while it runs); the second half's
+    commits go to a branch forked at a version the repack stored whole, so
+    the recorded bound theta holds for them.  A final ``svc.fsck()`` must
+    report no gating finding, every served tree must equal host ground
+    truth (a sha256 per leaf), and every committed version is checked out
+    at the end.  The cut to 1/32 (not 1/8): ``build_cost_graph``, inside the
+    repack, zlib-compresses every version's full payload on the host, which
+    runs at ~20 MB/s on the card's machine (phase d).
+    """
+    import asyncio
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import OptimizeSpec
+    from repro_torch.store import Repository
+
+    rng = np.random.default_rng(SEED + 9)
+    tree = make_dataset(rng, SERVICE_LEAVES)
+    version_bytes = sum(a.nbytes for a in tree.values())
+    repo = Repository(root, device=device,
+                      cache_budget_bytes=SERVICE_CACHE_VERSIONS * version_bytes)
+    digests: dict = {}  # id(leaf) -> digest; every leaf hashed stays alive,
+                        # and served trees share tensors (warm hits)
+
+    def digest_of(t: dict) -> dict:
+        out = {}
+        for name, arr in t.items():
+            if id(arr) not in digests:
+                digests[id(arr)] = leaf_digest(arr)
+            out[name] = digests[id(arr)]
+        return out
+
+    counters.zero()
+    t0 = time.perf_counter()
+    trees = {repo.commit(as_payload(tree), message="root"): tree}
+    tips = {"main": tree}
+    for i in range(1, SERVICE_VERSIONS):
+        if i % SERVICE_BRANCH_EVERY == 0:
+            branch = f"b{i}"
+            base_vid = int(rng.integers(1, i + 1))
+            repo.branch(branch, at=base_vid)
+            tips[branch] = trees[base_vid]
+        else:
+            branch = list(tips)[-1]
+        t = dict(tips[branch])
+        for name in PAIRS[i % 2]:
+            t[name] = edit_blocks(rng, t[name])
+        trees[repo.commit(as_payload(t), branch=branch, message=f"{branch} {i}")] = t
+        tips[branch] = t
+    truth = {vid: digest_of(t) for vid, t in trees.items()}
+    store = repo.store
+    theta = 1.5 * max(store.recreation_cost(v) for v in store.versions)
+    log(f"phase i: {len(trees)} versions of {version_bytes / 2**20:.2f} MiB committed in "
+        f"{time.perf_counter() - t0:.3f} s over {len(tips)} branches; stored "
+        f"{store.storage_bytes()} bytes; max recreation {theta / 1.5:.6f} s")
+
+    # the workload, made up front: zipfian reads over the committed
+    # versions, commit payloads continuing the main line's edits
+    wrng = np.random.RandomState(SEED % 2**31)
+    warm_reads = zipf_reads(sorted(trees), SERVICE_WARMUP, wrng)
+    reads = zipf_reads(sorted(trees), SERVICE_REQUESTS, wrng)
+    gaps = wrng.exponential(1.0, size=SERVICE_REQUESTS)  # scaled by the rate
+    is_commit = wrng.rand(SERVICE_REQUESTS) < SERVICE_WRITE_SHARE
+    payloads = []
+    t = tips["main"]
+    for _ in range(int(is_commit.sum())):
+        t = dict(t)
+        for name in PAIRS[len(payloads) % 2]:
+            t[name] = edit_blocks(rng, t[name])
+        payloads.append(t)
+    half = SERVICE_REQUESTS // 2
+    served = []      # (vid, tree) of every read
+    latencies = []   # open-loop: completion - scheduled arrival
+    committed = {}   # vid -> host tree
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        async with repo.serve(readers=4, batch_window_s=0.002,
+                              fsck_interval_s=5, fsck_sample=4) as svc:
+            # closed loop: SERVICE_CLIENTS clients, each request after the last
+            async def client(vids):
+                for v in vids:
+                    served.append((v, await svc.checkout(v)))
+
+            t0 = loop.time()
+            await asyncio.gather(*(client(warm_reads[c::SERVICE_CLIENTS])
+                                   for c in range(SERVICE_CLIENTS)))
+            warm_qps = SERVICE_WARMUP / (loop.time() - t0)
+            rate = warm_qps / 2
+            log(f"phase i: closed-loop warm-up: {SERVICE_WARMUP} reads from "
+                f"{SERVICE_CLIENTS} clients at {warm_qps:.3f} QPS; open loop at "
+                f"{rate:.3f} QPS")
+
+            async def fire(k: int, at: float, branch: str):
+                if is_commit[k]:
+                    body = payloads[int(is_commit[:k].sum())]
+                    vid = await svc.commit(as_payload(body), branch=branch,
+                                           message=f"service {k}")
+                    committed[vid] = body
+                else:
+                    served.append((reads[k], await svc.checkout(reads[k])))
+                latencies.append((bool(is_commit[k]), loop.time() - at))
+
+            arrivals = np.cumsum(gaps) / rate
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            tasks = []
+            with torch.profiler.profile(activities=acts) as prof:
+                start = loop.time()
+                shift = 0.0
+                for k in range(SERVICE_REQUESTS):
+                    if k == half:
+                        # midway: repack while the first half is in flight
+                        r0 = loop.time()
+                        counters_before = {n: sum(f.launches for f in fns)
+                                           for n, fns in counters.fns.items()}
+                        res = await svc.repack(OptimizeSpec.problem(6, theta=theta))
+                        repack_s = loop.time() - r0
+                        await asyncio.gather(*tasks)
+                        fresh = {n: sum(f.launches for f in fns) - counters_before[n]
+                                 for n, fns in counters.fns.items()}
+                        full = min((v for v, m in store.versions.items()
+                                    if m.stored_base is None),
+                                   key=store.recreation_cost)
+                        repo.branch("ingest", at=full)
+                        # the recorded bound must hold for what the second
+                        # half appends: a chain of deltas off a whole version
+                        room = store.recreation_cost(full) + int(is_commit[half:].sum()) * max(
+                            m.phi for m in store.versions.values() if m.stored_base is not None)
+                        check(room <= theta, f"phase i: the ingest chain may reach {room:.6f} s "
+                              f"of recreation, above theta {theta:.6f} s")
+                        shift += loop.time() - r0
+                        log(f"phase i: repack (Problem 6, theta {theta:.6f} s) in "
+                            f"{repack_s:.3f} s: storage_bytes "
+                            f"{res['before']['storage_bytes']} -> "
+                            f"{res['after']['storage_bytes']}, max_recreation_s "
+                            f"{res['before']['max_recreation_s']:.6f} -> "
+                            f"{res['after']['max_recreation_s']:.6f}, backend "
+                            f"{res['optimize']['backend']}, launches {json.dumps(fresh)}; "
+                            f"ingest forks at v{full}")
+                        check(res["optimize"]["backend"] == "torch",
+                              f"phase i: repack ran on {res['optimize']['backend']}")
+                        check(fresh["mp_reparent"] > 0 and fresh["min_argmin_1d"] > 0,
+                              "phase i: the repack launched no MP kernel")
+                    at = start + shift + arrivals[k]
+                    delay = at - loop.time()
+                    if delay > 0:
+                        await asyncio.sleep(delay)
+                    tasks.append(loop.create_task(
+                        fire(k, at, "main" if k < half else "ingest")))
+                await asyncio.gather(*tasks)  # each ends in host tensors
+                makespan = loop.time() - start
+            report = await svc.fsck()
+            late = await svc.checkout_many(sorted(committed))
+            return {"warm_qps": warm_qps, "rate": rate, "makespan": makespan,
+                    "open_loop_s": makespan - shift, "prof": prof,
+                    "report": report, "late": late, "stats": svc.stats()}
+
+    with obs.tracing() as tracer:
+        out = asyncio.run(run())
+    stats, report = out["stats"], out["report"]
+
+    fails = [f"v{vid}" for vid, got in served if digest_of(got) != truth[vid]]
+    for (vid, body), got in zip(sorted(committed.items()), out["late"]):
+        if digest_of(got) != digest_of(body):
+            fails.append(f"committed v{vid}")
+    check(not fails, f"phase i: served trees differ from ground truth: {fails[:10]}")
+    check(not report.gating(), "phase i: the final fsck reports " +
+          "; ".join(f.render() for f in report.gating()))
+    reads_ms = sorted(s * 1e3 for w, s in latencies if not w)
+    pct = lambda q: reads_ms[min(len(reads_ms) - 1, int(q / 100 * (len(reads_ms) - 1) + 0.5))]
+    c = stats["counters"]
+    summ = tracer.summary()
+
+    def recon(span, track):
+        tk = stats["tracks"][track]
+        return summ[span]["total_s"] / (tk["mean_ms"] * tk["count"] / 1e3)
+
+    path = root / "service_trace.json"
+    obs.chrome_trace(tracer, path)
+    problems = obs.validate_chrome_trace(path)
+    check(not problems, f"phase i: the exported trace does not validate: {problems[:3]}")
+    log(f"phase i: {SERVICE_REQUESTS} open-loop requests ({len(committed)} commits) in "
+        f"{out['open_loop_s']:.3f} s of schedule ({SERVICE_REQUESTS / out['open_loop_s']:.3f} "
+        f"QPS; makespan with the repack {out['makespan']:.3f} s); reads p50 {pct(50):.3f} ms "
+        f"p99 {pct(99):.3f} ms; service tracks latency.checkout "
+        f"{json.dumps(stats['tracks'].get('latency.checkout'))}")
+    log(f"phase i: counters coalesced {c.get('checkout.coalesced', 0)} batches "
+        f"{c.get('checkout.batches', 0)} batched_refs {c.get('checkout.batched_refs', 0)} "
+        f"warm_hits {c.get('checkout.warm_hits', 0)} warm_misses "
+        f"{c.get('checkout.warm_misses', 0)} fsck.sweeps {c.get('fsck.sweeps', 0)}; "
+        f"store {json.dumps(stats['store'])}")
+    log(f"phase i: tradeoff monitor last sample {json.dumps(stats['tradeoff']['latest'])}")
+    log(f"phase i: span/track reconciliation queue_wait "
+        f"{recon('svc.queue_wait', 'queue_wait'):.6f} decode {recon('svc.decode', 'decode'):.6f}; "
+        f"trace of {len(tracer)} spans ({tracer.dropped} dropped) validates")
+    log(f"phase i: final fsck: {report.render().splitlines()[0]}")
+    log(f"phase i: served {len(served)} trees and {len(committed)} committed versions, "
+        f"all equal to ground truth; open loop: {busy_share(out['prof'], out['makespan'])}")
+    repo.close()
+    counters.read("phase i (service)", ("chain_delta_apply", "changed_block_mask",
+                                        "mp_reparent", "min_argmin_1d"))
+    return {"warm_qps": out["warm_qps"], "rate": out["rate"]}
+
+
 # ------------------------------------------------- (h) dense-LM serving
 TENSOR_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 SERVE_ARCH = "minitron-4b"
@@ -1371,9 +1762,11 @@ def main(argv=None) -> int:
             truth = phase("b", drive_commits, Path(tmp) / "repo", counters)
             phase("c", drive_checkouts, Path(tmp) / "repo", truth, counters)
             phase("d", breakdown, Path(tmp) / "repo", truth)
+            phase("j", drive_block_ops, truth, counters)
             del truth
         phase("f", lambda: (drive_solvers(counters), solver_trace()))
         phase("g", drive_repack, Path(tmp) / "repack", counters)
+        phase("i", drive_service, Path(tmp) / "service", counters)
     phase("h", drive_serving, counters)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"total wall {time.perf_counter() - start:.3f} s")

@@ -6,8 +6,10 @@ path on PyTorch, with hand-written CUDA kernels (``repro_torch.kernels``),
 and reads and writes the same on-disk stores (``repro_torch.store``).  The
 models (``repro_torch.models``, ``repro_torch.configs``) keep the JAX
 package's parameter tree; ``repro_torch.serving`` and
-``repro_torch.launch.serve`` serve them.  It imports neither JAX nor
-anything of ``repro``.  Entry points run on the card unless the caller
+``repro_torch.launch.serve`` serve them.  ``repro_torch.service`` serves a
+repository to many clients, ``repro_torch.analysis`` checks its storage
+graph (fsck), and ``repro_torch.obs`` traces both.  It imports neither JAX
+nor anything of ``repro``.  Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 

@@ -134,8 +134,9 @@ class EdgeArrays:
                 float(self.delta[e]), float(self.phi[e]),
             )
 
-    def to_torch(self, device: "object" = "cpu") -> Dict[str, "object"]:
-        """The arrays as tensors on ``device`` (lazy torch import)."""
+    def to_torch(self, device: "object" = "cuda") -> Dict[str, "object"]:
+        """The arrays as tensors on ``device``, the card unless the caller
+        asks for the CPU (lazy torch import)."""
         import torch
 
         return {

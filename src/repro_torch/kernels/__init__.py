@@ -2,6 +2,7 @@
 
 The kernels are CUDA C++ with a plain C interface, one library per source
 file in ``csrc/`` (``delta_kernels.cu``: the block-sparse delta path;
+``block_kernels.cu``: the XOR delta and the block hash;
 ``segment_kernels.cu``: the solvers' segment min/argmin reductions and the
 Modified-Prim re-parenting step; ``attention_kernels.cu``: the dense LM's
 prefill attention).  At first use the package compiles every
@@ -11,14 +12,15 @@ under a file lock, and loads each shared library with ``ctypes``.  A
 library's file name carries a hash of its source, so an edited source is
 rebuilt and a stale library never loads.  A failed build raises.
 
-Every wrapper (:mod:`.block_diff`, :mod:`.sparse_apply`, :mod:`.chain_apply`,
-:mod:`.segment_ops`, :mod:`.flash_attention`) dispatches on the device of
-its tensors: CPU tensors take the plain PyTorch version in :mod:`.ref`;
-CUDA tensors launch the kernel or raise.  There is no fallback from one to
-the other.  No wrapper writes into its arguments, except ``mp_reparent``,
-whose contract is an in-place update of the solver's own loop buffers.
+Every wrapper (:mod:`.block_diff`, :mod:`.xor_delta`, :mod:`.sparse_apply`,
+:mod:`.chain_apply`, :mod:`.segment_ops`, :mod:`.flash_attention`)
+dispatches on the device of its tensors: CPU tensors take the plain
+PyTorch version in :mod:`.ref`; CUDA tensors launch the kernel or raise.
+There is no fallback from one to the other.  No wrapper writes into its
+arguments, except ``mp_reparent``, whose contract is an in-place update of
+the solver's own loop buffers.
 Each wrapper counts its launches in a plain integer attribute,
-``<wrapper>.launches``.
+``<wrapper>.launches`` (through :func:`count_launch`, safe across threads).
 """
 
 from __future__ import annotations
@@ -59,6 +61,10 @@ _ENTRIES = {
             _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp,
         ],
     }),
+    "block_kernels": ("block_error_string", {
+        "block_xor_delta": [_i, _vp, _vp, _vp, _ll, _vp],
+        "block_hash": [_i, _vp, _vp, _vp, _ll, _vp],
+    }),
     "attention_kernels": ("attention_error_string", {
         # q, k, v, o; B, Sq, Sk, H, KV, hd; 4 x 3 strides; scale, causal
         "attention_flash_fwd": (
@@ -72,6 +78,14 @@ _LIBRARY_OF = {
 
 _load_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches``.  The increment is a read-modify-write and
+    the service's reader threads launch concurrently, so it takes a lock."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from . import check_blocks, check_launchable, is_cpu, launch
+from . import check_blocks, check_launchable, count_launch, is_cpu, launch
 from .ref import BLOCK_SHAPE, chain_delta_apply_ref
 
 _INT32_MAX = 2**31 - 1
@@ -78,7 +78,7 @@ def chain_delta_apply(
         return base.clone()
     out = _chain_call(base, blocks, idx)
     if out.is_cuda:
-        chain_delta_apply.launches += 1
+        count_launch(chain_delta_apply)
     return out
 
 
@@ -117,7 +117,7 @@ def chain_delta_apply_batched(
         idx_flat.reshape(-1),
     )
     if out.is_cuda:
-        chain_delta_apply_batched.launches += 1
+        count_launch(chain_delta_apply_batched)
     return out.reshape(bases.shape)
 
 

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from . import is_cpu, launch
+from . import count_launch, is_cpu, launch
 from .ref import flash_attention_ref
 
 DEFAULT_BLOCK_Q = 512
@@ -80,7 +80,7 @@ def flash_attention(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         ctypes.c_float(scale), int(causal),
     )
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

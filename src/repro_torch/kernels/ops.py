@@ -1,12 +1,16 @@
 """The delta-path operations the store uses, over the block layout.
 
 Converts tensors of any supported dtype and shape to and from the canonical
-``(num_blocks, 8, 128)`` int32 block layout, and exposes the block-sparse
-delta operations:
+``(num_blocks, 8, 128)`` int32 block layout, and exposes the delta
+operations:
 
 * :func:`to_blocks` / :func:`from_blocks`: byte-preserving layout conversion
   (a ``uint8`` view, zero padding to 4 KiB, an ``int32`` view); the bytes
   equal the JAX package's for every dtype;
+* :func:`xor_encode` / :func:`xor_apply`: the paper's XOR delta variant
+  (CUDA kernel; self-inverse, so both are one XOR);
+* :func:`block_hashes`: a per-block content hash, a dedup hint (CUDA
+  kernel);
 * :func:`sparse_encode`: changed-block mask (CUDA kernel), then compaction to
   ``(idx, blocks)`` in plain PyTorch (the JAX package leaves it to XLA);
 * :func:`sparse_apply`, :func:`chain_apply`, :func:`chain_apply_batched`:
@@ -19,14 +23,16 @@ versions, CUDA tensors the kernels.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from .block_diff import changed_block_mask
+from .block_diff import block_hash, changed_block_mask, hash_coefficients
 from .chain_apply import chain_delta_apply, chain_delta_apply_batched
 from .ref import BLOCK_BYTES, BLOCK_SHAPE
 from .sparse_apply import sparse_delta_apply
+from .xor_delta import xor_delta
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +66,36 @@ def from_blocks(blocks: torch.Tensor, meta: BlockMeta) -> torch.Tensor:
     """Inverse of :func:`to_blocks` (a view of ``blocks``' memory)."""
     flat_u8 = blocks.reshape(-1).view(torch.uint8)[: meta.nbytes]
     return flat_u8.view(meta.dtype).reshape(meta.shape)
+
+
+# ------------------------------------------------------------------ XOR delta
+def xor_encode(base_blocks: torch.Tensor, new_blocks: torch.Tensor) -> torch.Tensor:
+    return xor_delta(base_blocks, new_blocks)
+
+
+def xor_apply(base_blocks: torch.Tensor, delta_blocks: torch.Tensor) -> torch.Tensor:
+    return xor_delta(base_blocks, delta_blocks)
+
+
+# ---------------------------------------------------------------- block hash
+# one copy of the multiplier table per device, made on first use under a
+# lock (the service's reader threads may hash concurrently), so no call pays
+# a host-to-device copy of it
+_COEF: Dict[torch.device, torch.Tensor] = {}
+_coef_lock = threading.Lock()
+
+
+def _coefficients(device: torch.device) -> torch.Tensor:
+    with _coef_lock:
+        coef = _COEF.get(device)
+        if coef is None:
+            coef = _COEF[device] = torch.from_numpy(hash_coefficients()).to(device)
+        return coef
+
+
+def block_hashes(blocks: torch.Tensor) -> torch.Tensor:
+    """(num_blocks,) int32 content hash of each 4 KiB block."""
+    return block_hash(blocks, _coefficients(blocks.device))[:, 0]
 
 
 # --------------------------------------------------------- block-sparse delta

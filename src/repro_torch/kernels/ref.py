@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the port's kernels.
 
-The delta-path functions operate on the canonical *block layout*: a
-tensor's backing bytes are viewed as ``(num_blocks, 8, 128)`` int32, one
-4 KiB storage block per row.  The shape is kept from the JAX package (where
-a block is one TPU VMEM tile) so that wire bytes match; on the GPU a block
-is simply 1024 words.  The solver functions reduce padded f32 rows and run
-one Modified-Prim re-parenting step.  ``flash_attention_ref`` is the plain
-version of the attention kernel.
+The delta-path functions operate on the canonical *block layout*: a tensor's
+backing bytes are viewed as ``(num_blocks, 8, 128)`` int32, one 4 KiB
+storage block per row: the XOR delta, the changed-block mask, the block
+hash, the sparse scatter and the fused chain. The shape is kept from the JAX
+package (where a block is one TPU VMEM tile) so that wire bytes match; on
+the GPU a block is simply 1024 words. The solver functions reduce padded f32
+rows and run one Modified-Prim re-parenting step. ``flash_attention_ref`` is
+the plain version of the attention kernel.
 
 These functions are what the kernel wrappers run for CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.  None of them
@@ -26,9 +27,33 @@ BLOCK_ELEMS = BLOCK_SHAPE[0] * BLOCK_SHAPE[1]
 BLOCK_BYTES = BLOCK_ELEMS * 4
 
 
+def xor_delta_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Bitwise delta between two same-shape int32 block arrays (the paper's
+    XOR delta).  Self-inverse: ``xor_delta_ref(a, xor_delta_ref(a, b)) == b``.
+    """
+    return torch.bitwise_xor(a, b)
+
+
 def changed_block_mask_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(num_blocks, 1) int32 mask: 1 where a block differs anywhere."""
     return (a != b).flatten(1).any(dim=1).to(torch.int32)[:, None]
+
+
+def block_hash_ref(x: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """(num_blocks, 1) int32 position-weighted multiplicative hash.
+
+    ``coef`` is an (8, 128) int32 array of odd per-position multipliers; the
+    hash is Σ x[s,l]·coef[s,l] with int32 wraparound, i.e. the sum mod 2**32
+    read as a two's-complement int32.  The wrap is made explicit: products
+    are taken in int64 (exact for int32 operands) and cut to their low 32
+    bits, the block's 1024 of them summed in int64 (< 2**42, exact), and the
+    sum cut to 32 bits again.  (A narrowing ``.to(torch.int32)`` of an
+    out-of-range int64 is not a documented wrap.)
+    """
+    low = 0xFFFFFFFF
+    prod = (x.to(torch.int64) * coef.to(torch.int64)) & low
+    s = prod.flatten(1).sum(dim=1) & low
+    return (s - ((s >> 31) << 32)).to(torch.int32)[:, None]
 
 
 def sparse_delta_apply_ref(

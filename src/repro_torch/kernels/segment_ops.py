@@ -28,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from . import is_cpu, launch
+from . import count_launch, is_cpu, launch
 from .ref import (
     min_argmin_1d_ref,
     mp_reparent_ref,
@@ -73,7 +73,7 @@ def segment_min_rows(x: torch.Tensor) -> torch.Tensor:
     if rows:
         launch("segment_min_rows", x.device, x.data_ptr(), out.data_ptr(),
                rows, width)
-        segment_min_rows.launches += 1
+        count_launch(segment_min_rows)
     return out
 
 
@@ -88,7 +88,7 @@ def segment_argmin_rows(x: torch.Tensor) -> torch.Tensor:
     if rows:
         launch("segment_argmin_rows", x.device, x.data_ptr(), out.data_ptr(),
                rows, width)
-        segment_argmin_rows.launches += 1
+        count_launch(segment_argmin_rows)
     return out
 
 
@@ -117,7 +117,7 @@ def min_argmin_1d(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     idx = torch.empty((), dtype=torch.int32, device=x.device)
     launch("segment_min_argmin_1d", x.device, x.data_ptr(), part_val.data_ptr(),
            part_idx.data_ptr(), val.data_ptr(), idx.data_ptr(), n, parts)
-    min_argmin_1d.launches += 1
+    count_launch(min_argmin_1d)
     return val, idx
 
 
@@ -165,7 +165,7 @@ def mp_reparent(
            pphi.data_ptr(), vi.data_ptr(), active.data_ptr(),
            in_tree.data_ptr(), l.data_ptr(), d.data_ptr(), p.data_ptr(),
            nvp, width)
-    mp_reparent.launches += 1
+    count_launch(mp_reparent)
 
 
 segment_min_rows.launches = 0

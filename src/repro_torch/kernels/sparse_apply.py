@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import check_blocks, check_launchable, is_cpu, launch
+from . import check_blocks, check_launchable, count_launch, is_cpu, launch
 from .ref import sparse_delta_apply_ref
 
 
@@ -47,7 +47,7 @@ def sparse_delta_apply(
             "delta_sparse_scatter", base.device,
             blocks.data_ptr(), idx.data_ptr(), out.data_ptr(), k, base.shape[0],
         )
-        sparse_delta_apply.launches += 1
+        count_launch(sparse_delta_apply)
     return out
 
 

@@ -205,6 +205,11 @@ class MaterializationCache:
         self.purges = 0
 
     # -- fingerprint handling ------------------------------------------------
+    @property
+    def epoch(self) -> Optional[str]:
+        """The live whole-graph fingerprint (global discipline only)."""
+        return self._fp
+
     def ensure_fingerprint(self, fp: str) -> None:
         """Adopt ``fp`` as the live storage graph, clearing stale entries."""
         with self._lock:
@@ -229,6 +234,16 @@ class MaterializationCache:
     def vids(self) -> List[int]:
         with self._lock:
             return list(self._entries.keys())
+
+    def __contains__(self, vid: int) -> bool:
+        with self._lock:
+            return vid in self._entries
+
+    def probe(self, vid: int, fp: Optional[str] = None) -> bool:
+        """Non-counting validity check: is ``vid`` servable under ``fp``?"""
+        with self._lock:
+            ent = self._entries.get(vid)
+            return ent is not None and ent[2] == fp
 
     def get(
         self, vid: int, fp: Optional[str] = None, *, count: bool = True
@@ -356,6 +371,19 @@ class Materializer:
         if self.invalidation == "global":
             self.cache.ensure_fingerprint(self._store.storage_fingerprint())
         return self.cache.vids()
+
+    def probe(self, vid: int) -> bool:
+        """Non-counting warm check: would ``checkout(vid)`` be a cache hit?
+        (The service tier's warm-hit attribution.)"""
+        try:
+            if self.invalidation == "global":
+                return (
+                    self.cache.epoch == self._store.storage_fingerprint()
+                    and vid in self.cache
+                )
+            return self.cache.probe(vid, self._store.chain_fingerprint(vid))
+        except (KeyError, RuntimeError):
+            return False  # unknown vid / corrupted chain: not servable
 
     # -- public API ----------------------------------------------------------
     def checkout(self, vid: int) -> FlatTree:

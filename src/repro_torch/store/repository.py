@@ -14,6 +14,9 @@ verb set —
 * ``diff(a, b)`` — leaf-level tree diff (added / removed / changed tensors);
 * ``repack(spec)`` / ``gc()`` — re-optimize physical storage and drop
   orphaned objects.
+* ``fsck()`` — integrity-check the storage graph, objects and refs;
+* ``serve(...)`` — an asyncio :class:`~repro_torch.service.DatasetService`
+  over the repository.
 
 Refs persist in the store's ``meta.msgpack`` next to the version metadata,
 in the JAX package's format, so branches and tags survive a close/reopen and
@@ -32,9 +35,7 @@ import torch
 
 from ..core import OptimizeSpec
 from .delta import FlatTree
-from .version_store import _NOT_PORTED, VersionMeta, VersionStore
-
-SERVICE_SLICE = "the service tier (the later slice that brings it and fsck)"
+from .version_store import VersionMeta, VersionStore
 
 __all__ = ["Repository", "TreeDiff", "Ref"]
 
@@ -259,15 +260,23 @@ class Repository:
             spec, use_access_frequencies=use_access_frequencies)
 
     def fsck(self, **kwargs: Any):
-        """Not ported yet; see ``VersionStore.fsck``."""
+        """Integrity-check the underlying store's storage graph, refs and
+        recorded constraints; returns an analysis
+        :class:`~repro_torch.analysis.findings.Report`."""
         return self.store.fsck(**kwargs)
 
     def serve(self, **kwargs: Any) -> Any:
-        """Not ported yet: the asynchronous dataset service tier comes with
-        a later slice of the port."""
-        raise NotImplementedError(
-            _NOT_PORTED.format("Repository.serve", SERVICE_SLICE)
-        )
+        """Build a :class:`~repro_torch.service.DatasetService` over this repo.
+
+        Keyword arguments pass through to ``DatasetService`` (reader-pool
+        width, batching window, fsck cadence, ...); the caller starts it::
+
+            async with repo.serve(readers=8) as svc:
+                tree = await svc.checkout("main")
+        """
+        from ..service import DatasetService  # local: service imports us
+
+        return DatasetService(self, **kwargs)
 
     def gc(self) -> int:
         return self.store.gc()

@@ -4,8 +4,7 @@ Tracks a *version graph* (derivation DAG from commits and branches) and a
 *storage graph* (what is physically stored: full objects and deltas).  The
 on-disk store is the JAX package's: the same ``meta.msgpack`` and the same
 object keys and bytes, so a store committed by either package opens and
-checks out bit-identically in the other.  Metadata this slice does not use
-(``edge_cache``, ``last_repack``) is carried through untouched.
+checks out bit-identically in the other.
 
 Commit path: a new version is stored as a delta against its first parent's
 payload when that is smaller than storing it whole; the changed-block masks
@@ -40,8 +39,10 @@ allocation and metadata writes are guarded by the store lock.
 Access counts are flushed to the metadata file every ``access_flush_every``
 checkouts and on ``close``, so counts survive a reload.
 
-``fsck`` needs the analysis package, which the port does not hold yet; it
-raises ``NotImplementedError``.
+``fsck`` checks the storage graph, objects, refs and recorded constraints
+(:func:`~repro_torch.analysis.fsck.fsck_store`).  A ``tradeoff_monitor``
+(:class:`~repro_torch.obs.tradeoff.TradeoffMonitor`), when attached, samples
+the (C, R) tradeoff after every commit and repack.
 """
 
 from __future__ import annotations
@@ -71,16 +72,6 @@ from .delta import (
 from .materializer import Materializer
 from .materializer import storage_fingerprint as _storage_graph_fp
 from .objectstore import ObjectStore
-
-_NOT_PORTED = (
-    "{} is not ported yet: it needs {}, which a later slice of the port "
-    "brings; the JAX package's repro.store opens the same root meanwhile"
-)
-FSCK_SLICE = (
-    "the analysis package (the later slice that brings the service tier "
-    "and fsck)"
-)
-
 
 @dataclasses.dataclass
 class VersionMeta:
@@ -180,10 +171,11 @@ class VersionStore:
         self._unflushed_accesses = 0
         self._storage_fp: Optional[str] = None
         # record of the last repack's spec and outcome, persisted with the
-        # metadata (the JAX package's fsck re-validates it)
+        # metadata (fsck re-validates its constraint bounds)
         self.last_repack: Optional[Dict[str, Any]] = None
-        # the live (C, R) sampler of the service tier, which the port does
-        # not hold yet: always None here; repack still calls its hook
+        # optional live (C, R) sampler (repro_torch.obs.tradeoff.TradeoffMonitor):
+        # when attached, commit/repack notify it.  Sampling is O(n) per
+        # event, so the service tier attaches it — not store-building loops.
         self.tradeoff_monitor: Optional[Any] = None
         self._meta_path = self.root / "meta.msgpack"
         if self._meta_path.exists():
@@ -257,6 +249,9 @@ class VersionStore:
                     stored_bytes=stored,
                     encoding="full" if stored_base is None else "delta",
                 )
+        mon = self.tradeoff_monitor
+        if mon is not None:
+            mon.on_commit(vid)
         return vid
 
     # ------------------------------------------------------------ checkout
@@ -604,9 +599,13 @@ class VersionStore:
 
     # ---------------------------------------------------------------- fsck
     def fsck(self, **kwargs: Any):
-        raise NotImplementedError(
-            _NOT_PORTED.format("VersionStore.fsck", FSCK_SLICE)
-        )
+        """Integrity-check the storage graph; returns an analysis
+        :class:`~repro_torch.analysis.findings.Report` (see
+        :func:`repro_torch.analysis.fsck.fsck_store` for the checks and
+        kwargs)."""
+        from ..analysis.fsck import fsck_store  # local: analysis -> store
+
+        return fsck_store(self, **kwargs)
 
     # ------------------------------------------------------------ metadata
     def save_refs(self) -> None:

@@ -329,12 +329,16 @@ class TestPortPaths:
             assert (stats["hits"], stats["invalidations"]) == (1, 2)
 
     def test_unported_operations_raise(self, tmp_path):
-        # repack and build_cost_graph are ported (tests/test_torch_repack.py);
-        # fsck and the service tier come with a later slice
+        # every store operation is ported now: repack and build_cost_graph
+        # (tests/test_torch_repack.py), fsck and the service tier
+        # (tests/test_torch_fsck.py, tests/test_torch_service.py); none of
+        # them raises NotImplementedError any more
+        from repro_torch.service import DatasetService
+
         repo = Repository(tmp_path, device="cpu")
-        for call in (repo.fsck, repo.store.fsck, repo.serve):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                call()
+        repo.commit({"x": torch.arange(8)})
+        assert repo.fsck().findings == repo.store.fsck().findings == []
+        assert isinstance(repo.serve(readers=1), DatasetService)
 
 
 class TestEntryPoints:
