@@ -62,12 +62,15 @@ use (into ``build/``).  Phases:
     with host ground truth.
 
 (h) Dense-LM serving.  First the flash-attention kernel against its plain
-    version on unit-normal bf16 inputs (max abs error <= 2e-2) at the
-    serving shape (B 8, S 2048, H 24, KV 8, hd 128, causal), at S = 1152,
-    at minicpm-2b's heads (g = 1, hd 64), at starcoder2-7b's (g = 9),
-    non-causal, with a softmax_scale override, at S = 128 and at hd 32,
-    timed at the serving shape beside its bound, its plain version and
-    ``scaled_dot_product_attention`` (the yardstick; never on the path).
+    version on unit-normal bf16 inputs (max abs error <= 2e-2), and bit-equal
+    across two calls, at the serving shape (B 8, S 2048, H 24, KV 8, hd 128,
+    causal), at S = 1152, at minicpm-2b's heads (g = 1, hd 64), at
+    starcoder2-7b's (g = 9, at B 2 and 8), non-causal, with a softmax_scale
+    override, at S = 128, at hd 32, with q, k, v as strided views of one
+    fused QKV tensor, at S = 200 (called directly: keys past a tile) and at
+    Sq = 128 against Sk = 2048; timed at the serving shape beside its bound,
+    its plain version and ``scaled_dot_product_attention`` (the yardstick;
+    never on the path), and beside SDPA at S = 1152, hd 64 and g = 9.
     Then minitron-4b at its full width and depth (5.1 B parameters, drawn
     on the card from a seeded generator): a ``ServeEngine`` of batch 8
     answers three greedy requests of 32 new tokens with seeded random
@@ -1424,28 +1427,38 @@ SERVE_BATCH = 8
 SERVE_PROMPTS = (2048, 1152, 1000)  # flash, flash (not a multiple of 512), gate
 SERVE_NEW = 32
 FLASH_TOL = 2e-2
-# label, B, S, H, KV, hd, causal, softmax_scale: unit-normal bf16 inputs
+# label, B, Sq, Sk, H, KV, hd, causal, softmax_scale, fused: unit-normal bf16
+# inputs; fused takes q, k, v as strided views of one (B, S, H + 2 KV, hd)
+# tensor, as a fused QKV projection would give them
 FLASH_SHAPES = (
-    ("serving", 8, 2048, 24, 8, 128, True, None),     # minitron-4b's prefill
-    ("S=1152", 8, 1152, 24, 8, 128, True, None),      # 128 | S, 512 does not
-    ("g=1 hd=64", 2, 2048, 36, 36, 64, True, None),   # minicpm-2b's heads
-    ("g=9", 2, 2048, 36, 4, 128, True, None),         # starcoder2-7b's heads
-    ("causal=False", 2, 2048, 24, 8, 128, False, None),
-    ("scale", 2, 1024, 24, 8, 128, True, 57 ** -0.5),
-    ("S=128", 8, 128, 24, 8, 128, True, None),        # one tile
-    ("hd=32", 2, 512, 4, 2, 32, True, None),          # the reduced configs' heads
+    ("serving", 8, 2048, 2048, 24, 8, 128, True, None, False),  # minitron-4b's prefill
+    ("S=1152", 8, 1152, 1152, 24, 8, 128, True, None, False),   # 128 | S, 512 does not
+    ("g=1 hd=64", 2, 2048, 2048, 36, 36, 64, True, None, False),  # minicpm-2b's heads
+    ("g=9", 2, 2048, 2048, 36, 4, 128, True, None, False),      # starcoder2-7b's heads
+    ("g=9 B=8", 8, 2048, 2048, 36, 4, 128, True, None, False),
+    ("causal=False", 2, 2048, 2048, 24, 8, 128, False, None, False),
+    ("scale", 2, 1024, 1024, 24, 8, 128, True, 57 ** -0.5, False),
+    ("S=128", 8, 128, 128, 24, 8, 128, True, None, False),      # one tile
+    ("hd=32", 2, 512, 512, 4, 2, 32, True, None, False),        # the reduced configs' heads
+    ("fused qkv", 8, 2048, 2048, 24, 8, 128, True, None, True),  # TMA through strides
+    ("S=200", 2, 200, 200, 24, 8, 128, True, None, False),      # keys past a tile, called directly
+    ("Sq=128 Sk=2048", 2, 128, 2048, 24, 8, 128, False, None, False),
 )
+FLASH_TIMED = ("S=1152", "g=1 hd=64", "g=9", "g=9 B=8")  # logged beside SDPA
 
 
 def flash_blocks(S: int) -> int:
-    """The block size ``_full_attention`` passes for a sequence of S."""
-    return 512 if S % 512 == 0 else 128
+    """The block size ``_full_attention`` passes for a sequence of S (and,
+    for one that is not a multiple of 128, S itself: a direct call)."""
+    return 512 if S % 512 == 0 else 128 if S % 128 == 0 else S
 
 
 def flash_checks(dev) -> list:
     """Phase (h), kernel part: flash_attention against its plain version on
-    the card at every shape of FLASH_SHAPES, timed at the serving shape beside
-    its bound, the plain version and SDPA (the yardstick, never on the path)."""
+    the card at every shape of FLASH_SHAPES, bit-equal across two calls,
+    timed at the serving shape beside its bound, the plain version and SDPA
+    (the yardstick, never on the path), and at the FLASH_TIMED shapes beside
+    SDPA and its bound (logged)."""
     import torch
     import torch.nn.functional as F
 
@@ -1454,43 +1467,59 @@ def flash_checks(dev) -> list:
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     result = None
-    for label, B, S, H, KV, hd, causal, scale in FLASH_SHAPES:
-        q = torch.randn((B, S, H, hd), generator=g, device=dev).to(torch.bfloat16)
-        k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(torch.bfloat16)
-        v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(torch.bfloat16)
-        blk = flash_blocks(S)
+    for label, B, Sq, Sk, H, KV, hd, causal, scale, fused in FLASH_SHAPES:
+        if fused:
+            assert Sq == Sk
+            qkv = torch.randn((B, Sq, H + 2 * KV, hd), generator=g, device=dev).to(torch.bfloat16)
+            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+            check(not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous()),
+                  "flash_attention fused qkv: the views are contiguous")
+        else:
+            q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(torch.bfloat16)
+            k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+            v = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+        bq, bk = flash_blocks(Sq), flash_blocks(Sk)
         kw = dict(causal=causal, softmax_scale=scale)
-        got = flash_attention(q, k, v, block_q=blk, block_k=blk, **kw)
-        want = flash_attention_ref(q, k, v, block_k=blk, **kw)
+        got = flash_attention(q, k, v, block_q=bq, block_k=bk, **kw)
+        again = flash_attention(q, k, v, block_q=bq, block_k=bk, **kw)
+        want = flash_attention_ref(q, k, v, block_k=bk, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        log(f"phase h: flash_attention {label} (B {B}, S {S}, H {H}, KV {KV}, hd {hd}, "
-            f"causal {causal}, scale {scale}): max_abs_err {err}")
+        same = torch.equal(got, again)
+        log(f"phase h: flash_attention {label} (B {B}, Sq {Sq}, Sk {Sk}, H {H}, KV {KV}, "
+            f"hd {hd}, causal {causal}, scale {scale}, fused views {fused}): max_abs_err "
+            f"{err}, two calls bit-equal {same}")
         check(err <= FLASH_TOL, f"flash_attention {label}: max_abs_err {err} > {FLASH_TOL}")
-        if label != "serving":
+        check(same, f"flash_attention {label}: two calls on the same inputs differ")
+        if label != "serving" and label not in FLASH_TIMED:
             continue
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                      scale=scale, enable_gqa=True)
         lib_err = float((sdpa().transpose(1, 2).float() - got.float()).abs().max())
-        flops = 4 * B * H * hd * S * (S + 1) // 2
-        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        flops = (4 * B * H * hd * Sq * (Sq + 1) // 2 if causal and Sq == Sk
+                 else 4 * B * H * hd * Sq * Sk)
+        nbytes = 2 * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
         t_ops, t_bytes = flops / TENSOR_FLOPS_PER_S * 1e3, bound_ms(nbytes)
-        result = {
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/attention_kernels.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:98",
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: flash_attention(q, k, v, block_q=blk, block_k=blk, **kw)),
-            "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, block_k=blk, **kw), iters=5),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": cuda_ms(sdpa),
-        }
-        log(f"phase h: flash_attention serving shape: {flops:.4e} flop, {nbytes} bytes; "
-            f"ms {result['ms']:.6f} plain_ms {result['plain_ms']:.6f} bound_ms "
-            f"{result['bound_ms']:.6f} ({result['bound_by']}; bytes {t_bytes:.6f}) "
-            f"sdpa_ms {result['library_ms']:.6f} (sdpa vs kernel max_abs_err {lib_err}); "
-            f"{flops / result['ms'] / 1e9:.1f} TFLOP/s")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, block_q=bq, block_k=bk, **kw))
+        lib_ms = cuda_ms(sdpa)
+        log(f"phase h: flash_attention {label}: {flops:.4e} flop, {nbytes} bytes; ms {ms:.6f} "
+            f"bound_ms {max(t_ops, t_bytes):.6f} ({'operations' if t_ops >= t_bytes else 'bytes'}; "
+            f"bytes {t_bytes:.6f}) sdpa_ms {lib_ms:.6f} (sdpa vs kernel max_abs_err {lib_err}); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / lib_ms:.4f} x sdpa")
+        if label == "serving":
+            result = {
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/attention_kernels.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:98",
+                "max_abs_err": err, "ms": ms,
+                "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, block_k=bk, **kw),
+                                    iters=5),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": lib_ms,
+            }
+            log(f"phase h: flash_attention serving shape: plain_ms {result['plain_ms']:.6f}")
         del qt, kt, vt
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1737,7 +1766,8 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.3f} s")
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            # registers, spills, errors, and ptxas serialising wgmma (C7514)
+            if any(w in line for w in ("registers", "spill", "error", "Performance Loss")):
                 log(f"  ptxas {lib.stem}: {line.strip()}")
     for stem in libs:
         kernels.library(stem)

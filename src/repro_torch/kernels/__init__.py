@@ -9,8 +9,9 @@ prefill attention).  At first use the package compiles every
 source with ``nvcc`` for Hopper (``sm_90a``) into ``build/`` at the root of
 the checkout — one ``nvcc`` process per source, all started together —
 under a file lock, and loads each shared library with ``ctypes``.  A
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale library never loads.  A failed build raises.
+library's file name carries a hash of its compile flags, its source and
+every header in ``csrc/``, so an edited source, header or flag is rebuilt
+and a stale library never loads.  A failed build raises.
 
 Every wrapper (:mod:`.block_diff`, :mod:`.xor_delta`, :mod:`.sparse_apply`,
 :mod:`.chain_apply`, :mod:`.segment_ops`, :mod:`.flash_attention`)
@@ -42,6 +43,13 @@ from .ref import BLOCK_SHAPE
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 _GENCODE = "arch=compute_90a,code=sm_90a"
+#: nvcc flags after the target.  ``-fmad=false`` keeps f32 arithmetic
+#: unfused, term for term as the plain versions compute it: the segment
+#: kernels' selection must be bit-exact.  The attention kernel promises no
+#: bit-identity and its softmax is a chain of multiply-adds, so it fuses.
+_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+          "-Xptxas", "-v"]
+_SOURCE_FLAGS = {"attention_kernels": [f for f in _FLAGS if f != "-fmad=false"]}
 
 _i, _ll, _vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 #: library (source stem) -> (its error-string entry, {entry: argtypes}); every
@@ -66,9 +74,10 @@ _ENTRIES = {
         "block_hash": [_i, _vp, _vp, _vp, _ll, _vp],
     }),
     "attention_kernels": ("attention_error_string", {
-        # q, k, v, o; B, Sq, Sk, H, KV, hd; 4 x 3 strides; scale, causal
+        # q, k, v, o, the work-tile counter; B, Sq, Sk, H, KV, hd; 4 x 3
+        # strides; scale, causal
         "attention_flash_fwd": (
-            [_i] + [_vp] * 4 + [_ll] * 6 + [_ll] * 12 + [ctypes.c_float, _i, _vp]
+            [_i] + [_vp] * 5 + [_ll] * 6 + [_ll] * 12 + [ctypes.c_float, _i, _vp]
         ),
     }),
 }
@@ -119,9 +128,19 @@ def sources() -> Dict[str, Path]:
     return {src.stem: src for src in sorted(CSRC.glob("*.cu"))}
 
 
+def compile_flags(stem: str) -> list:
+    """nvcc's arguments for ``csrc/<stem>.cu``, but the compiler, the output
+    and the source."""
+    return ["-gencode", _GENCODE] + _SOURCE_FLAGS.get(stem, _FLAGS)
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """Where the library of ``source`` is built: its name hashes the compile
+    flags, the source and every ``*.cuh`` beside it."""
+    h = hashlib.sha256(" ".join(compile_flags(source.stem)).encode())
+    for path in [source] + sorted(source.parent.glob("*.cuh")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 def build() -> Dict[str, Path]:
@@ -140,11 +159,7 @@ def build() -> Dict[str, Path]:
                 continue
             src = srcs[stem]
             tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
-            cmd = [
-                _nvcc(), "-gencode", _GENCODE, "-std=c++17", "-O3",
-                "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v", "-o", str(tmp), str(src),
-            ]
+            cmd = [_nvcc(), *compile_flags(stem), "-o", str(tmp), str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
             jobs.append((src, path, tmp, cmd, proc))

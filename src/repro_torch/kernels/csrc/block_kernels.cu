@@ -13,9 +13,18 @@
 //         nb int32: 40 us.  Its 33.5 M multiply-adds are ~2 us of the
 //         card's int32 rate.
 // Design.
-//   xor   a grid-stride loop of 16-byte (int4) loads of a and b and one
-//         int4 store into a fresh output.  The TPU kernel aliased its output
-//         to a (input_output_aliases={0: 0}); the port never writes into a
+//   xor   every thread moves a fixed chunk of four 16-byte (int4) words
+//         of a and b, 256 threads apart (so a warp's accesses stay
+//         coalesced), all four pairs loaded before any is stored, so four
+//         independent pairs are in flight; one CTA per 1024 words, as many
+//         CTAs as the data needs (no grid-stride loop).  Measured on an H100
+//         at 32,768 blocks beside torch.bitwise_xor in one process
+//         (tests/torch_kernel_ablation_check.py): this 0.1331 ms, torch
+//         0.1332 ms; with streaming hints (ld/st.global.cs) 0.1366 ms; a
+//         grid-stride loop over a grid sized to the card (SMs x resident
+//         CTAs) with the hints 0.1422 ms.
+//         The TPU kernel aliased its output to a
+//         (input_output_aliases={0: 0}); the port never writes into a
 //         wrapper's argument, so the output is a third buffer (counted in
 //         the bound above).
 //   hash  one thread block of 256 threads per 4 KiB block, the shape of
@@ -40,18 +49,29 @@ namespace {
 
 constexpr int kThreads = 256;   // int4 words per 4 KiB block
 constexpr int kWarps = kThreads / 32;
-constexpr long long kMaxXorBlocks = 132LL * 16;  // 16 blocks per SM
+constexpr int kXorWords = 4;  // int4 pairs in flight per thread
 
-__global__ void xor_delta_kernel(const int4* __restrict__ a,
-                                 const int4* __restrict__ b,
-                                 int4* __restrict__ out, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const int4 x = a[i];
-    const int4 y = b[i];
-    out[i] = make_int4(x.x ^ y.x, x.y ^ y.y, x.z ^ y.z, x.w ^ y.w);
+__global__ void __launch_bounds__(kThreads)
+xor_delta_kernel(const int4* __restrict__ a, const int4* __restrict__ b,
+                 int4* __restrict__ out, long long n) {
+  const long long base =
+      static_cast<long long>(blockIdx.x) * kThreads * kXorWords + threadIdx.x;
+  int4 x[kXorWords], y[kXorWords];
+#pragma unroll
+  for (int u = 0; u < kXorWords; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < n) {
+      x[u] = a[i];
+      y[u] = b[i];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kXorWords; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < n) {
+      out[i] = make_int4(x[u].x ^ y[u].x, x[u].y ^ y[u].y, x[u].z ^ y[u].z,
+                         x[u].w ^ y[u].w);
+    }
   }
 }
 
@@ -90,8 +110,7 @@ int block_xor_delta(int device, const void* a, const void* b, void* out,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n16 > 0) {
-    long long grid = (n16 + kThreads - 1) / kThreads;
-    if (grid > kMaxXorBlocks) grid = kMaxXorBlocks;
+    const long long grid = (n16 + kThreads * kXorWords - 1) / (kThreads * kXorWords);
     xor_delta_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int4*>(a), static_cast<const int4*>(b),

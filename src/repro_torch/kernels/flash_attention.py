@@ -3,10 +3,11 @@
 Replaces the Pallas kernel ``flash_attention`` (``_flash_kernel``) of
 ``src/repro/kernels/flash_attention.py``; the CUDA kernel is
 ``attention_flash_fwd`` in ``csrc/attention_kernels.cu``, where its bound and
-design are noted.  The JAX kernel's ``block_q`` / ``block_k`` were tile
-sizes for the TPU's VMEM; the CUDA kernel picks its own tiles, so on the
-card they only have to divide the sequences as in JAX, and the plain
-version (CPU tensors) takes ``block_k`` as its key-block size.
+design are noted (a persistent, warp-specialised kernel: TMA loads, wgmma
+products).  The JAX kernel's ``block_q`` / ``block_k`` were tile sizes for
+the TPU's VMEM; the CUDA kernel picks its own tiles, so on the card they
+only have to divide the sequences as in JAX, and the plain version (CPU
+tensors) takes ``block_k`` as its key-block size.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 #: head dims the CUDA kernel is built for (every dense config, full and reduced)
 HEAD_DIMS = (32, 64, 128)
+#: query heads per KV head the CUDA kernel takes: a consumer warpgroup's 64
+#: rows hold whole positions, all g heads of each
+MAX_GROUP = 64
 
 
 def flash_attention(
@@ -41,8 +45,9 @@ def flash_attention(
     (positions count from 0 in both).  Returns (B, Sq, H, hd) in q's dtype.
 
     CPU tensors take :func:`~.ref.flash_attention_ref`; CUDA tensors launch
-    the kernel (bf16, hd in :data:`HEAD_DIMS`, the head dim contiguous,
-    16-byte aligned rows) or raise.
+    the kernel (bf16, hd in :data:`HEAD_DIMS`, H / KV at most
+    :data:`MAX_GROUP`, the head dim contiguous, 16-byte strides and start,
+    as TMA reads them) or raise.
     """
     B, Sq, H, hd = q.shape
     _, Sk, KV, hd_v = v.shape
@@ -60,10 +65,12 @@ def flash_attention(
     if is_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, softmax_scale=scale,
                                    block_k=block_k)
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or hd not in HEAD_DIMS:
+    if (not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or hd not in HEAD_DIMS
+            or H // KV > MAX_GROUP):
         raise ValueError(
-            f"the CUDA kernel takes bf16 with hd in {HEAD_DIMS}, got "
-            f"{q.dtype}/{k.dtype}/{v.dtype} hd {hd}"
+            f"the CUDA kernel takes bf16 with hd in {HEAD_DIMS} and at most "
+            f"{MAX_GROUP} query heads per KV head, got {q.dtype}/{k.dtype}/{v.dtype} "
+            f"hd {hd}, H {H}, KV {KV}"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
@@ -73,9 +80,11 @@ def flash_attention(
                 f"{t.stride()}"
             )
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    # the persistent kernel's CTAs take their work tiles from this counter
+    next_tile = torch.zeros(1, dtype=torch.int32, device=q.device)
     launch(
         "attention_flash_fwd", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), next_tile.data_ptr(),
         B, Sq, Sk, H, KV, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         ctypes.c_float(scale), int(causal),

@@ -1,0 +1,94 @@
+"""The port's kernel build, on the CPU: per-source nvcc flags, and library
+names that change with the flags, the source or any header beside it, so
+that a stale library in build/ is never loaded.  A stand-in for nvcc records
+the commands ``build`` runs."""
+
+import stat
+import sys
+
+import pytest
+
+from repro_torch import kernels
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A csrc/ of two sources and a header, a build/ and a recording nvcc."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "toy_kernels.cu").write_text('#include "toy.cuh"\n')
+    (src / "other_kernels.cu").write_text("// no header\n")
+    (src / "toy.cuh").write_text("// v1\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        "open(args[args.index('-o') + 1], 'w').write(' '.join(args))\n"
+    )
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(kernels, "CSRC", src)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
+    return src
+
+
+def test_name_is_stable_and_names_the_source(csrc):
+    path = kernels.library_path(csrc / "toy_kernels.cu")
+    assert path == kernels.library_path(csrc / "toy_kernels.cu")
+    assert path.parent == kernels.BUILD_DIR and path.name.startswith("libtoy_kernels_")
+
+
+def test_header_change_renames_the_library(csrc):
+    before = kernels.library_path(csrc / "toy_kernels.cu")
+    (csrc / "toy.cuh").write_text("// v2\n")
+    assert kernels.library_path(csrc / "toy_kernels.cu") != before
+    (csrc / "toy.cuh").write_text("// v1\n")
+    assert kernels.library_path(csrc / "toy_kernels.cu") == before
+    (csrc / "new.cuh").write_text("// a header more\n")
+    assert kernels.library_path(csrc / "toy_kernels.cu") != before
+
+
+def test_source_change_renames_the_library(csrc):
+    before = kernels.library_path(csrc / "toy_kernels.cu")
+    (csrc / "toy_kernels.cu").write_text('#include "toy.cuh"\n// edited\n')
+    assert kernels.library_path(csrc / "toy_kernels.cu") != before
+
+
+def test_flag_change_renames_the_library(csrc, monkeypatch):
+    before = kernels.library_path(csrc / "toy_kernels.cu")
+    other = kernels.library_path(csrc / "other_kernels.cu")
+    monkeypatch.setitem(kernels._SOURCE_FLAGS, "toy_kernels", kernels._FLAGS + ["-DTOY"])
+    assert kernels.library_path(csrc / "toy_kernels.cu") != before
+    assert kernels.library_path(csrc / "other_kernels.cu") == other
+
+
+def test_attention_fuses_and_the_other_sources_do_not():
+    flags = {stem: kernels.compile_flags(stem) for stem in kernels.sources()}
+    assert set(flags) == {"attention_kernels", "block_kernels", "delta_kernels",
+                          "segment_kernels"}
+    for stem, f in flags.items():
+        assert f[:2] == ["-gencode", "arch=compute_90a,code=sm_90a"], stem
+        assert ("-fmad=false" in f) == (stem != "attention_kernels"), stem
+    assert [x for x in flags["segment_kernels"] if x != "-fmad=false"] == \
+        flags["attention_kernels"]
+
+
+def test_build_runs_each_sources_own_command_once(csrc, monkeypatch):
+    monkeypatch.setitem(kernels._SOURCE_FLAGS, "toy_kernels", kernels._FLAGS + ["-DTOY"])
+    paths = kernels.build()
+    assert set(paths) == {"toy_kernels", "other_kernels"}
+    for stem, path in paths.items():
+        args = path.read_text().split()
+        assert args[:-3] == kernels.compile_flags(stem)
+        assert args[-1] == str(csrc / f"{stem}.cu")
+        assert path.with_suffix(".log").exists()
+    assert "-DTOY" in paths["toy_kernels"].read_text()
+    assert "-DTOY" not in paths["other_kernels"].read_text()
+    stamp = {stem: p.stat().st_mtime_ns for stem, p in paths.items()}
+    assert kernels.build() == paths  # built libraries are not rebuilt
+    assert {stem: p.stat().st_mtime_ns for stem, p in paths.items()} == stamp
+    (csrc / "toy.cuh").write_text("// v2\n")
+    again = kernels.build()
+    assert again["toy_kernels"] != paths["toy_kernels"] and again["toy_kernels"].exists()
+    assert again["other_kernels"] != paths["other_kernels"]  # every header counts

@@ -153,3 +153,37 @@ def test_gate_routes_as_the_jax_opt_in_path(monkeypatch, causal):
     assert [(tuple(s), c, bq, bk) for s, c, bq, bk in jax_calls] == port_calls
     assert len(port_calls) == 4 and all(c[1] == causal for c in port_calls)
     assert [c[2:] for c in port_calls] == [(128, 128), (512, 512), (128, 128), (512, 512)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_key_tile_of_the_cuda_kernel_matches_jax_kernel(causal):
+    """The plain version over 128-key blocks, the CUDA kernel's key tile, at
+    g = 3 (128 folded rows are 42 2/3 positions) and Sq != Sk, against the
+    JAX kernel at the same blocks."""
+    B, Sq, Sk, H, KV, hd = 1, 256, 384, 6, 2, 64
+    (qa, ka, va), (q, k, v) = _inputs(11 + causal, B, Sq, Sk, H, KV, hd)
+    want = jax_flash(qa, ka, va, causal=causal, block_q=128, block_k=128)
+    got = flash_attention(q, k, v, causal=causal, block_q=128, block_k=128)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL)
+    chunked = chunked_attention(q, k, v, causal=causal, chunk=128)
+    np.testing.assert_allclose(_f32(got), _f32(chunked), **TOL)
+
+
+def test_strided_views_of_a_fused_qkv_tensor():
+    """q, k and v as views of one (B, S, H + 2 KV, hd) tensor, as a fused
+    projection would give them: read through their strides, the same answer
+    as contiguous copies and as the JAX kernel."""
+    B, S, H, KV, hd = 2, 256, 6, 2, 32
+    rng = np.random.RandomState(12)
+    fused_a = np.asarray(jnp.asarray(rng.randn(B, S, H + 2 * KV, hd), jnp.bfloat16))
+    fused = torch.from_numpy(fused_a.view(np.uint16).copy()).view(torch.bfloat16)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + KV], fused[:, :, H + KV:]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    got = flash_attention(q, k, v, causal=True, block_q=128, block_k=128)
+    copies = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                             block_q=128, block_k=128)
+    assert torch.equal(got, copies)
+    want = jax_flash(*(np.ascontiguousarray(x) for x in (
+        fused_a[:, :, :H], fused_a[:, :, H:H + KV], fused_a[:, :, H + KV:])),
+        causal=True, block_q=128, block_k=128)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL)

@@ -1,0 +1,296 @@
+"""What the design choices of two CUDA kernels are worth, measured on the card.
+
+Not a pytest module (it needs a CUDA card and ``nvcc``): run it by hand on
+the GPU machine from the root of a checkout,
+
+    PYTHONPATH=src python tests/torch_kernel_ablation_check.py
+
+It builds variants of the committed sources by text substitution (into
+``build/ablation/``; a substitution whose text is no longer in the source
+fails loudly) and times each at the main path's shape, in turns with the
+committed kernel and the library call in one process:
+
+* ``attention_kernels.cu`` at the serving shape (B 8, S 2048, H 24, KV 8,
+  hd 128, causal): as committed; with FlashAttention-3's ping-pong (two
+  named barriers make the consumer warpgroups take turns on the tensor
+  cores); without the overlap of the softmax with the PV product (the
+  consumer waits for both products before its softmax); beside
+  ``scaled_dot_product_attention``.  Each variant is held against the plain
+  version (max abs error).  A last variant counts clock64 cycles of each
+  consumer stage (waits for Q, K/V and the products, the Q scaling, the
+  softmax, the last PV product, the epilogue), summed over its work.
+* ``block_kernels.cu``'s XOR delta at 32,768 blocks: as committed (a fixed
+  chunk of four int4 pairs a thread, plain loads and stores); the same with
+  streaming hints (``ld/st.global.cs``); a grid-stride loop over a grid
+  sized to the card (SMs x resident CTAs) with the hints; beside
+  ``torch.bitwise_xor``.  Each variant must be bit-identical.
+
+The last line is one JSON object with every time, and the card's name and
+power limit.
+"""
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import cuda_ms  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
+
+OUT = ROOT / "build" / "ablation"
+
+PING_PONG = [
+    ("    uint32_t it = 0;  // key tiles consumed so far (the rings' position)\n",
+     "    uint32_t it = 0;  // key tiles consumed so far (the rings' position)\n"
+     "    if (c == 1) bar_arrive(1, 256);\n"),
+    ("        issue_s(s);\n        if (stored",
+     "        bar_sync(1 + c, 256);\n        issue_s(s);\n        bar_arrive(2 - c, 256);\n"
+     "        if (stored"),
+    ("        issue_s(s);\n        issue_pv(sp);\n",
+     "        bar_sync(1 + c, 256);\n        issue_s(s);\n        issue_pv(sp);\n"
+     "        bar_arrive(2 - c, 256);\n"),
+    ("        fence_regs(o);\n        issue_pv(sp);\n        wgmma_wait<0>();",
+     "        fence_regs(o);\n        bar_sync(1 + c, 256);\n        issue_pv(sp);\n"
+     "        bar_arrive(2 - c, 256);\n        wgmma_wait<0>();"),
+    ("      stored = buf;\n    }\n",
+     "      stored = buf;\n    }\n    if (c == 0) bar_sync(1, 256);  // consumer 1's last arrival\n"),
+    ("__device__ __forceinline__ void bar_sync(int id, int threads) {",
+     "__device__ __forceinline__ void bar_arrive(int id, int threads) {\n"
+     "  asm volatile(\"bar.arrive %0, %1;\" :: \"r\"(id), \"r\"(threads) : \"memory\");\n}\n\n"
+     "__device__ __forceinline__ void bar_sync(int id, int threads) {"),
+]
+NO_OVERLAP = [("        wgmma_wait<1>();\n", "        wgmma_wait<0>();\n")]
+FLASH = {"committed": [], "ping-pong": PING_PONG, "no softmax/PV overlap": NO_OVERLAP}
+
+# clock64 cycle counts of a consumer's stages, summed over its work, per CTA
+STAGES = ("Q wait", "Q scale", "K/V wait", "S wait", "softmax", "PV wait", "key tile 0",
+          "last PV", "epilogue", "key tiles", "total")
+CYCLES = [
+    ("namespace {\n", "namespace {\n__device__ long long g_cycles[1024][2][11];\n"),
+    ("    uint32_t it = 0;  // key tiles consumed so far (the rings' position)\n",
+     "    uint32_t it = 0;  // key tiles consumed so far (the rings' position)\n"
+     "    long long cy[11] = {0}, _a, _b;\n    const long long t_start = clock64();\n"),
+    ("      mbar_wait(q_full + 8 * buf, (k >> 1) & 1);\n      const int w = tile_of[buf];\n",
+     "      _a = clock64();\n      mbar_wait(q_full + 8 * buf, (k >> 1) & 1);\n"
+     "      cy[0] += clock64() - _a;\n      const int w = tile_of[buf];\n"),
+    ("      const uint32_t sQb = sQ + buf * G::kQBytes;\n",
+     "      const uint32_t sQb = sQ + buf * G::kQBytes;\n      _a = clock64();\n"),
+    ("      const uint64_t dq = make_desc(", "      cy[1] += clock64() - _a;\n      const uint64_t dq = make_desc("),
+    ("        mbar_wait(full_k + 8 * s, (it / kStages) & 1);\n        mbar_wait(full_v",
+     "        _a = clock64();\n        ++cy[9];\n        mbar_wait(full_k + 8 * s, (it / kStages) & 1);\n"
+     "        mbar_wait(full_v"),
+    ("        fence_regs(o);\n        issue_s(s);\n        issue_pv(sp);\n",
+     "        cy[2] += clock64() - _a;\n        fence_regs(o);\n        issue_s(s);\n        issue_pv(sp);\n"),
+    ("        wgmma_wait<1>();\n", "        _a = clock64();\n        wgmma_wait<1>();\n        cy[3] += clock64() - _a;\n"),
+    ("        softmax(t);\n", "        _a = clock64();\n        softmax(t);\n        cy[4] += clock64() - _a;\n"),
+    ("        wgmma_wait<0>();\n        fence_regs(o);\n        if (lane == 0) mbar_arrive(empty_v + 8 * sp);\n#pragma unroll",
+     "        _a = clock64();\n        wgmma_wait<0>();\n        cy[5] += clock64() - _a;\n        fence_regs(o);\n"
+     "        if (lane == 0) mbar_arrive(empty_v + 8 * sp);\n#pragma unroll"),
+    ("      {  // key tile 0: S alone\n", "      _b = clock64();\n      ++cy[9];\n      {  // key tile 0: S alone\n"),
+    ("        ++it;\n      }\n", "        ++it;\n      }\n      cy[6] += clock64() - _b;\n"),
+    ("      {  // O += P V of the last tile\n", "      _b = clock64();\n      {  // O += P V of the last tile\n"),
+    ("      // out = acc / max(l, 1e-30), staged", "      cy[7] += clock64() - _b;\n      _b = clock64();\n"
+     "      // out = acc / max(l, 1e-30), staged"),
+    ("      stored = buf;\n", "      stored = buf;\n      cy[8] += clock64() - _b;\n"),
+    ("    if (t128 == 0) asm volatile(\"cp.async.bulk.wait_group 0;\"",
+     "    cy[10] = clock64() - t_start;\n"
+     "    if (t128 == 0 && blockIdx.x < 1024)\n"
+     "      for (int i = 0; i < 11; ++i) g_cycles[blockIdx.x][c][i] = cy[i];\n"
+     "    if (t128 == 0) asm volatile(\"cp.async.bulk.wait_group 0;\""),
+    ('}  // extern "C"', 'int read_cycles(void* host) {\n'
+     '  return static_cast<int>(cudaMemcpyFromSymbol(host, g_cycles, sizeof(g_cycles)));\n}\n\n'
+     '}  // extern "C"'),
+]
+
+XOR_CS = [("      x[u] = a[i];\n      y[u] = b[i];\n", "      x[u] = __ldcs(a + i);\n      y[u] = __ldcs(b + i);\n"),
+          ("      out[i] = make_int4(", "      __stcs(out + i, make_int4("),
+          ("                         x[u].w ^ y[u].w);\n", "                         x[u].w ^ y[u].w));\n")]
+GRID_STRIDE_KERNEL = """__global__ void __launch_bounds__(kThreads)
+xor_delta_kernel(const int4* __restrict__ a, const int4* __restrict__ b,
+                 int4* __restrict__ out, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; i + (kXorWords - 1) * stride < n; i += kXorWords * stride) {
+    int4 x[kXorWords], y[kXorWords];
+#pragma unroll
+    for (int u = 0; u < kXorWords; ++u) {
+      x[u] = __ldcs(a + i + u * stride);
+      y[u] = __ldcs(b + i + u * stride);
+    }
+#pragma unroll
+    for (int u = 0; u < kXorWords; ++u)
+      __stcs(out + i + u * stride, make_int4(x[u].x ^ y[u].x, x[u].y ^ y[u].y,
+                                             x[u].z ^ y[u].z, x[u].w ^ y[u].w));
+  }
+  for (; i < n; i += stride) {
+    const int4 x = __ldcs(a + i), y = __ldcs(b + i);
+    __stcs(out + i, make_int4(x.x ^ y.x, x.y ^ y.y, x.z ^ y.z, x.w ^ y.w));
+  }
+}
+
+"""
+GRID_STRIDE_LAUNCH = """    long long grid = (n16 + kThreads - 1) / kThreads;
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, xor_delta_kernel, kThreads, 0);
+    if (grid > static_cast<long long>(sms) * per_sm) grid = static_cast<long long>(sms) * per_sm;
+"""
+
+
+def variant(stem: str, name: str, subs) -> Path:
+    """Write ``csrc/<stem>.cu`` with ``subs`` applied; return the .cu path."""
+    src = (kernels.CSRC / f"{stem}.cu").read_text()
+    for old, new in subs:
+        if old not in src:
+            raise SystemExit(f"{stem} / {name}: the text to replace is gone: {old[:60]!r}")
+        src = src.replace(old, new, 1)
+    path = OUT / (stem + "_" + "".join(ch if ch.isalnum() else "_" for ch in name) + ".cu")
+    path.write_text(src)
+    return path
+
+
+def xor_grid_stride_subs():
+    src = (kernels.CSRC / "block_kernels.cu").read_text()
+    start = src.index("__global__ void __launch_bounds__(kThreads)\nxor_delta_kernel")
+    end = src.index("__global__ void block_hash_kernel")
+    launch_start = src.index("    const long long grid = (n16 + kThreads * kXorWords - 1)")
+    launch_end = src.index("    xor_delta_kernel<<<")
+    return [(src[start:end], GRID_STRIDE_KERNEL), (src[launch_start:launch_end], GRID_STRIDE_LAUNCH)]
+
+
+def build(jobs: dict) -> dict:
+    """name -> .so, every nvcc at once, with the source's committed flags."""
+    procs = {}
+    for name, (stem, cu) in jobs.items():
+        so = cu.with_suffix(".so")
+        cmd = [kernels._nvcc(), *kernels.compile_flags(stem), "-o", str(so), str(cu)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{name}: nvcc failed\n{out[-3000:]}")
+        serial = [line.strip() for line in out.splitlines() if "C7514" in line]
+        if serial:
+            print(f"{name}: ptxas: {serial[0][:160]}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_kernel_ablation_check: no CUDA device", file=sys.stderr)
+        return 2
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = {f"flash {n}": ("attention_kernels", variant("attention_kernels", n, subs))
+            for n, subs in FLASH.items()}
+    jobs["flash cycles"] = ("attention_kernels", variant("attention_kernels", "cycles", CYCLES))
+    xor = {"committed": [], "streaming hints": XOR_CS,
+           "card-sized grid-stride, hints": xor_grid_stride_subs()}
+    jobs.update({f"xor {n}": ("block_kernels", variant("block_kernels", n, subs))
+                 for n, subs in xor.items()})
+    libs = build(jobs)
+    dev = torch.device("cuda", 0)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    g = torch.Generator(device=dev).manual_seed(1505_05211)
+    times: dict = {}
+
+    B, S, H, KV, hd = 8, 2048, 24, 8, 128
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+    want = flash_attention_ref(q, k, v, causal=True, block_k=512)
+    o = torch.empty_like(q)
+    argtypes = kernels._ENTRIES["attention_kernels"][1]["attention_flash_fwd"]
+
+    def flash(lib):
+        fn = lib.attention_flash_fwd
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), nxt.data_ptr(),
+                 B, S, S, H, KV, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *o.stride()[:3], ctypes.c_float(1 / math.sqrt(hd)), 1, stream())
+        assert err == 0, err
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    for rep in range(3):
+        for name in FLASH:
+            lib = libs[f"flash {name}"]
+            flash(lib)
+            torch.cuda.synchronize()
+            err = float((o.float() - want.float()).abs().max())
+            ms = cuda_ms(lambda: flash(lib))
+            times.setdefault(f"flash {name}", []).append(ms)
+            print(f"flash {name}: {ms:.6f} ms (max_abs_err {err})", flush=True)
+        times.setdefault("flash sdpa", []).append(cuda_ms(sdpa))
+        print(f"flash sdpa: {times['flash sdpa'][-1]:.6f} ms", flush=True)
+    lib = libs["flash cycles"]
+    for _ in range(3):
+        flash(lib)
+    torch.cuda.synchronize()
+    import numpy as np
+
+    cyc = np.zeros((1024, 2, len(STAGES)), dtype=np.int64)
+    lib.read_cycles.argtypes, lib.read_cycles.restype = [ctypes.c_void_p], ctypes.c_int
+    assert lib.read_cycles(cyc.ctypes.data) == 0
+    cyc = cyc[:torch.cuda.get_device_properties(0).multi_processor_count]
+    cycles = {}
+    for c in range(2):
+        mean = cyc[:, c].mean(axis=0)
+        cycles[f"consumer {c}"] = {n: float(x) for n, x in zip(STAGES, mean)}
+        print(f"flash cycles, consumer {c} (mean per CTA): " + ", ".join(
+            f"{n} {x:.0f} ({x / mean[-1]:.3f})" for n, x in zip(STAGES, mean)))
+        print(f"  per key tile: K/V wait {mean[2] / mean[9]:.0f}, S wait {mean[3] / mean[9]:.0f}, "
+              f"softmax {mean[4] / mean[9]:.0f}, PV wait {mean[5] / mean[9]:.0f} cycles")
+    times["flash cycles"] = cycles
+    del q, k, v, o, want, qt, kt, vt
+
+    a = torch.randint(-2**31, 2**31 - 1, (32768, 8, 128), dtype=torch.int32, device=dev,
+                      generator=g)
+    b = torch.randint(-2**31, 2**31 - 1, (32768, 8, 128), dtype=torch.int32, device=dev,
+                      generator=g)
+    out = torch.empty_like(a)
+    ref = torch.bitwise_xor(a, b)
+
+    def xor_call(lib):
+        fn = lib.block_xor_delta
+        fn.argtypes = kernels._ENTRIES["block_kernels"][1]["block_xor_delta"]
+        fn.restype = ctypes.c_int
+        assert fn(0, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // 4, stream()) == 0
+
+    for rep in range(3):
+        times.setdefault("xor torch.bitwise_xor", []).append(
+            cuda_ms(lambda: torch.bitwise_xor(a, b)))
+        for name in xor:
+            lib = libs[f"xor {name}"]
+            out.zero_()
+            xor_call(lib)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise SystemExit(f"xor {name}: not bit-identical")
+            times.setdefault(f"xor {name}", []).append(cuda_ms(lambda: xor_call(lib)))
+        print("  ".join(f"{n} {t[-1]:.6f}" for n, t in times.items() if n.startswith("xor")),
+              flush=True)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    print(json.dumps({"card": smi, "ms": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
