@@ -34,14 +34,19 @@ use (into ``build/``).  Phases:
 (d) Breakdown.  The host steps of a commit, timed one by one, and one cold
     checkout under the port's span tracer and ``torch.profiler`` (device
     busy and idle share).
-(e) Segment kernel checks.  The solvers' kernels (segment min / argmin over
-    rows, the global min/argmin, the Modified-Prim re-parenting step) at the
-    main path's shapes — the 131,072 x 32 in-edge matrix of a 66,000-version
-    graph, a 2**20-element LMG candidate vector, a 131,072-element Prim/MP
-    key — and in edge cases (ties, all-+inf rows, NaN, widths that are not
-    a multiple of 32, a single row, lengths that are not a multiple of 128),
-    each held bit for bit against its plain version and timed beside its
-    bound and ``torch.amin`` / ``torch.argmin`` / ``torch.min``.
+(e) Segment kernel checks.  The solvers' reductions (segment min / argmin
+    over rows, the global min/argmin) at the main path's shapes — the
+    131,072 x 32 in-edge matrix of a 66,000-version graph, a 2**20-element
+    LMG candidate vector, a 131,072-element key — and in edge cases (ties,
+    all-+inf rows, NaN, widths that are not a multiple of 32, a single row,
+    lengths that are not a multiple of 128), each held bit for bit against
+    its plain version and timed beside its bound and ``torch.amin`` /
+    ``torch.argmin`` / ``torch.min``.  Then the Prim and Modified-Prim step
+    loops (one launch a solve), bit for bit in every state array, on phase
+    (f)'s graphs at 2,000 and 66,000 versions and in edge cases (ties, NaN
+    keys, unreachable versions, widths 40 and above 1,024, a single vertex,
+    2**21 rows of width 8 for 48 steps), timed at 66,000 beside the plain
+    loop, the bytes bound and the latency floor (``segment_loop_floor``).
 (f) Solvers at n = 66,000 (``generate_flat``, the DC-like shape of the
     solver-scale sweep; undirected for Prim): Problem 2 (SPT), Problem 1
     undirected (Prim), Problem 3 (LMG) at 1.05 x C_min, Problem 6 (MP) at
@@ -50,9 +55,11 @@ use (into ``build/``).  Phases:
     then with ``backend="numpy"``.  The card's tree must equal the CPU
     torch tree; the parents that differ from the numpy tree are counted
     (f32 selection may break near-ties the other way) beside both f64
-    objectives.  Then Prim and MP run at n = 2,000 under torch.profiler
-    (after the counted runs): the device's busy share, and the host
-    synchronisations, which must not grow with the steps.
+    objectives; Prim and MP must launch their loop kernel once a solve
+    and ``min_argmin_1d`` never.  Then Prim and MP run at n = 500 and
+    2,000 under torch.profiler (after the counted runs): the device's busy
+    share, and the host synchronisations and kernel launches, which must
+    not grow with the steps.
 (g) Store repack.  A fresh ``Repository`` of 64 versions of ~4 MiB in a
     branching history (four dtypes, 0.5% of blocks edited per commit) is
     committed and its cost graph measured (counted as one phase), then
@@ -71,6 +78,8 @@ use (into ``build/``).  Phases:
     Sq = 128 against Sk = 2048; timed at the serving shape beside its bound,
     its plain version and ``scaled_dot_product_attention`` (the yardstick;
     never on the path), and beside SDPA at S = 1152, hd 64 and g = 9.
+    ``_full_attention`` at hd 256 and at 72 query heads a KV head (S = 128)
+    must take the chunked softmax: no flash launch, no error.
     Then minitron-4b at its full width and depth (5.1 B parameters, drawn
     on the card from a seeded generator): a ``ServeEngine`` of batch 8
     answers three greedy requests of 32 new tokens with seeded random
@@ -487,7 +496,8 @@ class Counters:
             "segment_min_rows": [segment_ops.segment_min_rows],
             "segment_argmin_rows": [segment_ops.segment_argmin_rows],
             "min_argmin_1d": [segment_ops.min_argmin_1d],
-            "mp_reparent": [segment_ops.mp_reparent],
+            "prim_loop": [segment_ops.prim_loop],
+            "mp_loop": [segment_ops.mp_loop],
             "flash_attention": [flash_attention.flash_attention],
             "xor_delta": [xor_delta.xor_delta],
             "block_hash": [block_diff.block_hash],
@@ -757,7 +767,6 @@ def segment_checks(dev) -> list:
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_ops import (
         min_argmin_1d,
-        mp_reparent,
         segment_argmin_rows,
         segment_min_rows,
     )
@@ -858,72 +867,7 @@ def segment_checks(dev) -> list:
                   f"{cuda_ms(lambda: torch.min(cand, 0)):.6f} ms]",
     })
 
-    # mp_reparent: an MP state at the main path's shape (a random forest with
-    # parents below their children, half the vertices in the tree), then the
-    # same sequence of selected vertices through the kernel and through the
-    # plain loop on copies of the state
-    def state():
-        pd = torch.randint(1, nvp, (nvp, width), dtype=torch.int32, device=dev, generator=g)
-        pd[:, 24:] = nvp                                   # padding
-        pdelta = torch.rand((nvp, width), device=dev, generator=g) * 100
-        pphi = torch.rand((nvp, width), device=dev, generator=g) * 100
-        pdelta[:, 24:] = torch.inf
-        pphi[:, 24:] = torch.inf
-        pphi[::11, 0] = 0.0                                # exact-EPS boundary
-        ids = torch.arange(nvp + 2, device=dev)
-        p = (torch.rand(nvp + 2, device=dev, generator=g) * ids).to(torch.int32)
-        p[0] = -1
-        d = torch.rand(nvp + 2, device=dev, generator=g) * 200
-        l = torch.rand(nvp + 2, device=dev, generator=g) * 100
-        d[0] = l[0] = 0.0
-        in_tree = torch.rand(nvp + 2, device=dev, generator=g) < 0.5
-        in_tree[0] = True
-        in_tree[nvp:] = False
-        return pd, pdelta, pphi, in_tree, l, d, p
-
-    pd, pdelta, pphi, in_tree, l, d, p = state()
-    picks = torch.randint(1, nvp, (64,), dtype=torch.int32, device=dev, generator=g)
-    true = torch.ones((), dtype=torch.bool, device=dev)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
-    k_state = [t.clone() for t in (l, d, p)]
-    r_state = [t.clone() for t in (l, d, p)]
-    for j in range(picks.shape[0]):
-        vi, act = picks[j], (false if j % 16 == 15 else true)
-        mp_reparent(pd, pdelta, pphi, vi, act, in_tree, *k_state)
-        ref.mp_reparent_ref(pd, pdelta, pphi, vi, act, in_tree, *r_state)
-    err_mp = 0.0
-    for name, got, want in zip("ldp", k_state, r_state):
-        err_mp = max(err_mp, same_bits(got, want, f"mp_reparent {name}"))
-    changed = int((k_state[2] != p).sum())
-    check(changed > 0, "mp_reparent: the check state re-parented nothing")
-    log(f"phase e: mp_reparent re-parented {changed} vertices over {picks.shape[0]} steps")
-
-    def steps(fn, st):
-        """One call per invocation, cycling through the selected vertices."""
-        count = iter(range(1 << 62))
-
-        def step():
-            fn(pd, pdelta, pphi, picks[next(count) % picks.shape[0]], true, in_tree, *st)
-        return step
-
-    k_step = steps(mp_reparent, [t.clone() for t in (l, d, p)])
-    k_ms = cuda_ms(k_step)
-    r_ms = cuda_ms(steps(ref.mp_reparent_ref, [t.clone() for t in (l, d, p)]),
-                   iters=8, warmup=1)
-    # bytes one step must touch: its row of ids and costs, the in-tree flags,
-    # l / d of its neighbours and the written entries (the walk's reads are
-    # data-dependent and not counted)
-    step_bytes = width * (4 + 4 + 4 + 1 + 4 + 4) + 4 + 1
-    results.append({
-        "name": "mp_reparent", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/segment_kernels.cu",
-        "replaces": "src/repro/core/solvers/jax_backend.py:300",
-        "max_abs_err": err_mp,
-        "ms": k_ms, "plain_ms": r_ms,
-        "bound_ms": bound_ms(step_bytes), "bound_by": "bytes",
-        "library_ms": None, "call_ms": host_call_ms(k_step),
-    })
-    del pd, pdelta, pphi, in_tree, l, d, p, k_state, r_state, cand, key
+    del cand, key
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for r in results:
@@ -931,6 +875,161 @@ def segment_checks(dev) -> list:
             f"plain_ms {r['plain_ms']:.6f} bound_ms {r['bound_ms']:.9f} "
             f"library_ms {r['library_ms']} call_ms {r['call_ms']:.6f}"
             + (f" {r['shapes']}" if "shapes" in r else ""))
+    return results + loop_checks(dev)
+
+
+def loop_instance(rng, n: int, deg: int, *, ties=False, mirror=False, unreachable=0,
+                  nan_roots=0, hub=0):
+    """Edge arrays of ``n`` versions for the loop checks: a materialization
+    edge from the root to each version but the last ``unreachable`` (which
+    no edge reaches), ``deg`` random out-edges a version (duplicates and
+    self-loops left to ``EdgeArrays``: it dedups, so a row lists distinct
+    ids), ``hub`` more out of version 1.  ``ties`` draws every cost from a
+    few integers, ``mirror`` adds each edge's reverse, ``nan_roots`` makes
+    the first root edges' storage cost NaN (and their recreation cost 1)."""
+    from repro_torch.core.edge_arrays import EdgeArrays
+
+    reach = n - unreachable
+    src = np.repeat(np.arange(1, n + 1), deg)
+    dst = rng.integers(1, reach + 1, n * deg)
+    if hub:
+        src = np.concatenate([src, np.ones(hub, np.int64)])
+        dst = np.concatenate([dst, rng.choice(reach, hub, replace=False) + 1])
+    if mirror:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    if ties:
+        delta = rng.integers(1, 4, src.size).astype(np.float64)
+        phi = rng.integers(1, 4, src.size).astype(np.float64)
+        rdelta = rng.integers(40, 43, reach).astype(np.float64)
+        rphi = rng.integers(40, 43, reach).astype(np.float64)
+    else:
+        delta = rng.uniform(1, 1000, src.size)
+        phi = delta * rng.uniform(0.2, 5, src.size)
+        rdelta = rng.uniform(5e3, 1e4, reach)
+        rphi = rdelta * rng.uniform(0.2, 5, reach)
+    rdelta[:nan_roots] = np.nan
+    rphi[:nan_roots] = 1.0  # under any theta, so MP's key is NaN there too
+    return EdgeArrays.from_edges(
+        n, np.concatenate([np.zeros(reach, np.int64), src]),
+        np.concatenate([np.arange(1, reach + 1), dst]),
+        np.concatenate([rdelta, delta]), np.concatenate([rphi, phi]))
+
+
+def loop_checks(dev) -> list:
+    """Phase (e), the solver loops: ``prim_loop`` and ``mp_loop`` against
+    their plain versions on the card, bit for bit in every state array
+    (Prim's best, bp, in_tree; MP's l, d, p, in_tree; the first nvp entries,
+    as the JAX package returns them: the plain version's masked scatters
+    write the trash entry nvp + 1, the kernels skip it), on phase (f)'s graphs
+    at n = 2,000 and 66,000 and in edge cases; each timed at n = 66,000
+    beside its plain version, its bytes bound and the latency floor (the
+    same steps of one block barrier and one dependent L2 load each,
+    ``segment_loop_floor``)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import OptimizeSpec, optimize
+    from repro_torch.core.solvers import torch_backend as tb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_ops import mp_loop, prim_loop
+
+    def prim_run(ea, steps):
+        """(name, kernel, plain, initial state, state names, row shape)."""
+        pd, pw, *st = tb.prim_state(ea, dev)
+        return ("prim_loop", lambda x: prim_loop(pd, pw, *x, steps),
+                lambda x: ref.prim_loop_ref(pd, pw, *x, steps), st,
+                ("best", "bp", "in_tree"), tuple(pd.shape))
+
+    def mp_run(ea, theta, steps):
+        pd, pdelta, pphi, bound, *st = tb.mp_state(ea, theta, dev)
+        return ("mp_loop", lambda x: mp_loop(pd, pdelta, pphi, bound, *x, steps),
+                lambda x: ref.mp_loop_ref(pd, pdelta, pphi, bound, *x, steps), st,
+                ("l", "d", "p", "in_tree"), tuple(pd.shape))
+
+    def hold(label, ea, theta, steps=None):
+        """Both loops on one instance: the kernel against the plain version."""
+        out = {}
+        steps = ea.n if steps is None else steps
+        for name, kern, plain, init, names, shape in (prim_run(ea, steps),
+                                                      mp_run(ea, theta, steps)):
+            got, want = [t.clone() for t in init], [t.clone() for t in init]
+            kern(got)
+            plain(want)
+            for nm, a, b in zip(names, got, want):  # entries nvp, nvp + 1: padding, trash
+                same_bits(a[:shape[0]], b[:shape[0]], f"{name} {nm} ({label})")
+            out[name] = int(got[-1].sum()) - 1  # vertices the loop put in the tree
+        log(f"phase e: loops ({label}): nvp {shape[0]}, width {shape[1]}, "
+            f"{steps} steps; vertices put in the tree "
+            f"{json.dumps(out)}; bit-identical to the plain versions")
+
+    def theta_of(g):
+        return optimize(g, OptimizeSpec.problem(2, backend="numpy")).solution.max_recreation() * 1.5
+
+    rng = np.random.default_rng(SEED + 3)
+    gu, gd = solver_graph(2_000, False), solver_graph(2_000, True)
+    hold("phase f's graphs, n = 2,000", gu.arrays(), theta_of(gd))
+    hold("phase f's graphs, n = 2,000, MP undirected", gu.arrays(), theta_of(gu))
+    theta = 1.2 * 3 * 7.5e3  # about the median root phi, so theta binds
+    cases = {
+        "ties": (loop_instance(rng, 1500, 12, ties=True, mirror=True), 45.0),
+        "NaN keys": (loop_instance(rng, 1500, 12, nan_roots=3), theta),
+        "unreachable versions": (loop_instance(rng, 1500, 12, unreachable=200), theta),
+        "width 40": (loop_instance(rng, 1500, 37, mirror=False), theta),
+        "width > 1,024": (loop_instance(rng, 1500, 6, hub=1100, mirror=True), theta),
+        "a single vertex": (loop_instance(rng, 1, 1), theta),
+    }
+    for label, (ea, th) in cases.items():
+        hold(label, ea, th)
+    big = loop_instance(rng, (1 << 20) + 1, 8)
+    check(tb.padded_out_rows(big)[0].ids.shape == (1 << 21, 8), "phase e: nvp 2**21 layout")
+    hold("nvp = 2**21, width 8", big, theta, steps=48)
+    del big
+
+    # the main path's shape: phase (f)'s graphs at n = 66,000, timed
+    gu, gd = solver_graph(SOLVER_N, False), solver_graph(SOLVER_N, True)
+    cycle = torch.randperm(1 << 17, device=dev, dtype=torch.int64)
+    nxt = torch.empty(1 << 17, dtype=torch.int32, device=dev)
+    nxt[cycle] = torch.roll(cycle, -1).to(torch.int32)
+    end = torch.empty(1, dtype=torch.int32, device=dev)
+    results = []
+    for name, kern, plain, init, names, shape in (
+            prim_run(gu.arrays(), SOLVER_N), mp_run(gd.arrays(), theta_of(gd), SOLVER_N)):
+        work = [t.clone() for t in init]
+
+        def fresh(fn):
+            def call():
+                for w, t in zip(work, init):
+                    w.copy_(t)
+                fn(work)
+            return call
+
+        want = [t.clone() for t in init]
+        plain_ms = cuda_ms(lambda: plain(want), iters=1, warmup=0)
+        ms = cuda_ms(fresh(kern), iters=3, warmup=1)
+        err = max(same_bits(a[:shape[0]], b[:shape[0]], f"{name} {nm} (n = {SOLVER_N})")
+                  for nm, a, b in zip(names, work, want))
+        steps = int(work[-1].sum()) - 1  # steps that selected a vertex
+        nvp, width = shape
+        row = width * (4 + 4 * (len(names) - 2))   # ids and the costs a step reads
+        state = (nvp + 2) * sum(t.element_size() for t in init)
+        nbytes = steps * row + 2 * state           # the state read and written once
+        floor_ms = cuda_ms(lambda: kernels.launch(
+            "segment_loop_floor", dev, nxt.data_ptr(), end.data_ptr(), steps), iters=3, warmup=1)
+        results.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_kernels.cu",
+            "replaces": "src/repro/kernels/segment_ops.py:62",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "library_ms": None,
+        })
+        log(f"kernel {name}: n = {SOLVER_N} ({nvp} x {width} rows, {steps} steps): "
+            f"max_abs_err {err} ms {ms:.6f} plain_ms {plain_ms:.6f} bound_ms (bytes, "
+            f"{nbytes} B) {bound_ms(nbytes):.9f} latency floor ms {floor_ms:.6f} "
+            f"({floor_ms / steps * 1e3:.4f} us a step; kernel {ms / steps * 1e3:.4f} us "
+            f"a step); binding: {'latency' if floor_ms > bound_ms(nbytes) else 'bytes'}")
+    del work, want, nxt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return results
 
 
@@ -975,6 +1074,7 @@ def drive_solvers(counters: "Counters") -> dict:
 
     t0 = time.perf_counter()
     gd, gu = solver_graph(SOLVER_N, True), solver_graph(SOLVER_N, False)
+    gd.arrays(), gu.arrays()  # each graph's cached edge view, before any backend is timed
     log(f"phase f: graphs n={SOLVER_N}: directed {gd.n_edges} edges, undirected "
         f"{gu.n_edges} edges, made in {time.perf_counter() - t0:.3f} s")
     out = {}
@@ -989,6 +1089,13 @@ def drive_solvers(counters: "Counters") -> dict:
               f"phase f {label}: the card's tree differs from the CPU torch tree")
         differ = sum(1 for v, p in cuda.solution.parent.items()
                      if numpy_res.solution.parent[v] != p)
+        if label in SOLVER_LOOP:
+            check(launches[SOLVER_LOOP[label]] == 1 and launches["min_argmin_1d"] == 0,
+                  f"phase f {label}: {SOLVER_LOOP[label]} launched "
+                  f"{launches[SOLVER_LOOP[label]]} times and min_argmin_1d "
+                  f"{launches['min_argmin_1d']} times in one solve, not once and never")
+            log(f"phase f: {label}: the card {'below' if cuda_s < numpy_s else 'NOT below'} "
+                f"numpy ({cuda_s:.3f} s against {numpy_s:.3f} s)")
         out[label] = {"cuda_s": cuda_s, "cpu_s": cpu_s, "numpy_s": numpy_s,
                       "launches": launches}
         log(f"phase f: {label}: backend_used cuda={cuda.backend_used} cpu={cpu.backend_used} "
@@ -999,52 +1106,63 @@ def drive_solvers(counters: "Counters") -> dict:
     return out
 
 
-def solver_trace(n: int = 2_000) -> None:
-    """Prim and MP on the card at ``n`` versions under torch.profiler: the
-    device's busy share, and the host synchronisations the run made, which
-    must not grow with the number of steps (the step loops never sync)."""
+def solver_trace(sizes=(500, 2_000)) -> None:
+    """Prim and MP on the card under torch.profiler at each of ``sizes``
+    versions: the device's busy share, the host synchronisations and the
+    kernel launches the run made, which must not grow with the number of
+    steps (each loop is one launch and never syncs)."""
     import torch
     from torch.autograd import DeviceType
 
     from repro_torch.core import OptimizeSpec, optimize
 
     syncs = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
-    gu, gd = solver_graph(n, False), solver_graph(n, True)
-    theta = optimize(gd, OptimizeSpec.problem(2, backend="numpy")).solution.max_recreation() * 1.5
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for label, g, spec in (("prim", gu, OptimizeSpec.problem(1)),
-                           ("mp", gd, OptimizeSpec.problem(6, theta=theta))):
-        optimize(g, spec, device="cuda")  # warm
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            optimize(g, spec, device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy, counts = 0.0, {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                busy += e.time_range.elapsed_us() / 1e6
-            elif e.name in syncs or e.name == "cudaLaunchKernel":
-                counts[e.name] = counts.get(e.name, 0) + 1
-        n_sync = sum(v for k, v in counts.items() if k in syncs)
-        log(f"phase f: traced {label} n={n} ({n} steps) in {wall:.3f} s: device busy "
-            f"{busy:.6f} s (idle share {1 - busy / wall:.6f}); runtime events "
-            f"{json.dumps(counts)}")
-        if counts.get("cudaLaunchKernel"):
-            check(n_sync < n // 10,
-                  f"phase f: {label} synchronised {n_sync} times in {n} steps")
-        else:
-            log(f"phase f: {label}: the trace holds no runtime API events; host "
-                f"synchronisations not measured")
+    launched = {}
+    for n in sizes:
+        gu, gd = solver_graph(n, False), solver_graph(n, True)
+        theta = optimize(gd, OptimizeSpec.problem(2, backend="numpy")).solution.max_recreation() * 1.5
+        for label, g, spec in (("prim", gu, OptimizeSpec.problem(1)),
+                               ("mp", gd, OptimizeSpec.problem(6, theta=theta))):
+            optimize(g, spec, device="cuda")  # warm
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                optimize(g, spec, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy, counts, device = 0.0, {}, {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    busy += e.time_range.elapsed_us() / 1e6
+                    device[e.name[:40]] = device.get(e.name[:40], 0) + 1
+                elif e.name in syncs or e.name == "cudaLaunchKernel":
+                    counts[e.name] = counts.get(e.name, 0) + 1
+            n_sync = sum(v for k, v in counts.items() if k in syncs)
+            share = (f"device busy {busy:.6f} s (idle share {1 - busy / wall:.6f})" if busy else
+                     "device busy time not measured (the profiler recorded no device events)")
+            log(f"phase f: traced {label} n={n} ({n} steps) in {wall:.3f} s: {share}; runtime "
+                f"events {json.dumps(counts)}; device events {json.dumps(device)}")
+            if counts.get("cudaLaunchKernel"):
+                check(n_sync < 100, f"phase f: {label} synchronised {n_sync} times in {n} steps")
+                launched.setdefault(label, []).append(counts["cudaLaunchKernel"])
+            else:
+                log(f"phase f: {label}: the trace holds no runtime API events; host "
+                    f"synchronisations and launches not measured")
+    for label, counts in launched.items():
+        check(counts[-1] <= counts[0] + 10 and counts[-1] < 100,
+              f"phase f: {label} launched {counts} kernels at n = {list(sizes)}: "
+              f"the launches grow with the steps")
 
 
 # which kernels each solver's card run must launch
 SOLVER_NEEDS = {
     "spt": ("segment_min_rows", "segment_argmin_rows"),
-    "prim": ("min_argmin_1d",),
+    "prim": ("prim_loop",),
     "lmg": ("segment_min_rows", "segment_argmin_rows", "min_argmin_1d"),
-    "mp": ("min_argmin_1d", "mp_reparent"),
+    "mp": ("mp_loop",),
 }
+# the one kernel of a whole Prim / MP solve, launched once
+SOLVER_LOOP = {"prim": "prim_loop", "mp": "mp_loop"}
 
 
 # -------------------------------------------------------- (g) store repack
@@ -1357,8 +1475,7 @@ def drive_service(root: Path, counters: Counters, device: str = "cuda") -> dict:
                             f"ingest forks at v{full}")
                         check(res["optimize"]["backend"] == "torch",
                               f"phase i: repack ran on {res['optimize']['backend']}")
-                        check(fresh["mp_reparent"] > 0 and fresh["min_argmin_1d"] > 0,
-                              "phase i: the repack launched no MP kernel")
+                        check(fresh["mp_loop"] > 0, "phase i: the repack launched no MP kernel")
                     at = start + shift + arrivals[k]
                     delay = at - loop.time()
                     if delay > 0:
@@ -1416,7 +1533,7 @@ def drive_service(root: Path, counters: Counters, device: str = "cuda") -> dict:
         f"all equal to ground truth; open loop: {busy_share(out['prof'], out['makespan'])}")
     repo.close()
     counters.read("phase i (service)", ("chain_delta_apply", "changed_block_mask",
-                                        "mp_reparent", "min_argmin_1d"))
+                                        "mp_loop"))
     return {"warm_qps": out["warm_qps"], "rate": out["rate"]}
 
 
@@ -1521,6 +1638,27 @@ def flash_checks(dev) -> list:
             }
             log(f"phase h: flash_attention serving shape: plain_ms {result['plain_ms']:.6f}")
         del qt, kt, vt
+    # shapes the kernel does not take go to the chunked softmax, a route
+    # chosen from the shapes before any launch: hd 256 and 72 query heads a
+    # KV head, at S = 128 (where the JAX opt-in path takes its kernel)
+    from repro_torch.models.attention import _full_attention
+
+    for label, B, S, H, KV, hd in (("hd 256", 2, 128, 8, 4, 256),
+                                   ("H / KV = 72", 2, 128, 72, 1, 64)):
+        q = torch.randn((B, S, H, hd), generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+        before = flash_attention.launches
+        got = _full_attention(q, k, v, causal=True)
+        want = flash_attention_ref(q, k, v, causal=True, block_k=128)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        log(f"phase h: _full_attention {label} (B {B}, S {S}, H {H}, KV {KV}, hd {hd}): "
+            f"flash launches {flash_attention.launches - before}, max_abs_err against the "
+            f"plain flash version {err}")
+        check(flash_attention.launches == before,
+              f"_full_attention {label}: launched the flash kernel, which does not take it")
+        check(err <= FLASH_TOL, f"_full_attention {label}: max_abs_err {err} > {FLASH_TOL}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return [result]

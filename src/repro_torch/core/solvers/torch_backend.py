@@ -15,13 +15,14 @@ versions, and nothing else decides the route.
   segment-argmin kernel as the in-edge minimizing ``(dist[u], u)`` among
   those attaining the final distance — the heap's pop-order tie-break.  One
   host sync per round (the fixpoint test).
-* :func:`prim` — Prim over the undirected instance as a loop of ``n`` device
-  steps with no host sync: vertex selection is :func:`min_argmin_1d` over
-  the masked key (first-min == smallest id, the heap's ``(w, v)`` order),
-  and each accepted vertex relaxes its padded out-row with one scatter.
-* :func:`modified_prim_core` — the MP loop (Algorithm 2), likewise without a
-  host sync per step; the sequential in-tree re-parenting (lines 10–17) is
-  the one-thread ``mp_reparent`` kernel.  The rare unreached-version SPT
+* :func:`prim` — Prim over the undirected instance as ``n`` steps in one
+  :func:`~repro_torch.kernels.segment_ops.prim_loop` launch: vertex
+  selection is the (min, first argmin) of the masked key (first-min ==
+  smallest id, the heap's ``(w, v)`` order), and each accepted vertex
+  relaxes its padded out-row.
+* :func:`modified_prim_core` — the MP loop (Algorithm 2), likewise one
+  :func:`~repro_torch.kernels.segment_ops.mp_loop` launch, in-tree
+  re-parenting (lines 10–17) included.  The rare unreached-version SPT
   splice stays host-side in :mod:`.mp` (shared with the NumPy path).
 * :class:`LmgScorer` — the LMG per-round candidate scoring (ρ reduction +
   argmax) on device, one host sync per round; the splice bookkeeping stays
@@ -60,7 +61,8 @@ import torch
 from ...kernels import resolve_device
 from ...kernels.segment_ops import (
     min_argmin_1d,
-    mp_reparent,
+    mp_loop,
+    prim_loop,
     segment_argmin_rows,
     segment_min_rows,
 )
@@ -213,59 +215,43 @@ def sssp(
 
 
 # ------------------------------------------------------------------- (b) Prim
-def prim(ea: EdgeArrays, *, device: Device = "cuda") -> np.ndarray:
-    """Prim over the undirected instance; returns the parent array (index 0
-    and unreachable vertices hold ``-1``)."""
-    dev = resolve_device(device)
+def prim_state(ea: EdgeArrays, dev: torch.device):
+    """Prim's loop inputs on ``dev``: ``(pd, pw, best, bp, in_tree)``, the
+    padded out-rows (int32 ids, f32 weights) and the state after the root's
+    step (its whole out-row relaxed; its pop is always step 0)."""
     rows, root_dst, root_delta, _ = padded_out_rows(ea)
-    nvp, width = rows.ids.shape
-    pd = torch.from_numpy(rows.ids).to(dev).long()  # gathers/scatters index with it
+    nvp = rows.nvp
+    pd = torch.from_numpy(rows.ids).to(dev)
     pw = torch.from_numpy(rows.w).to(dev)
-    inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
-    trash = torch.tensor(nvp + 1, dtype=torch.long, device=dev)
     best = torch.full((nvp + 2,), np.inf, dtype=torch.float32, device=dev)
     bp = torch.full((nvp + 2,), -1, dtype=torch.int32, device=dev)
     in_tree = torch.zeros((nvp + 2,), dtype=torch.bool, device=dev)
     in_tree[0] = True
-    # the root's whole out-row relaxes first (its pop is always step 0)
     ridx = torch.from_numpy(root_dst).to(dev).long()
     best.index_copy_(0, ridx, torch.from_numpy(root_delta).to(dev))
     bp.index_copy_(0, ridx, torch.zeros_like(ridx, dtype=torch.int32))
-    for _ in range(ea.n):
-        key = torch.where(in_tree[:nvp], inf, best[:nvp])
-        bmin, u = min_argmin_1d(key)
-        active = torch.isfinite(bmin)
-        u1 = u.view(1)
-        in_tree.index_fill_(0, u1.long(), True)
-        vs = pd.index_select(0, u1).view(width)
-        ws = pw.index_select(0, u1).view(width)
-        imp = active & ~in_tree.index_select(0, vs) & (ws < best.index_select(0, vs))
-        idx = torch.where(imp, vs, trash)
-        best.index_copy_(0, idx, ws)
-        bp.index_copy_(0, idx, u.expand(width))
+    return pd, pw, best, bp, in_tree
+
+
+def prim(ea: EdgeArrays, *, device: Device = "cuda") -> np.ndarray:
+    """Prim over the undirected instance; returns the parent array (index 0
+    and unreachable vertices hold ``-1``)."""
+    dev = resolve_device(device)
+    pd, pw, best, bp, in_tree = prim_state(ea, dev)
+    prim_loop(pd, pw, best, bp, in_tree, ea.n)
     return bp[: ea.n + 1].cpu().numpy()
 
 
 # -------------------------------------------------------- (c) Modified Prim
-def modified_prim_core(
-    ea: EdgeArrays, theta: float, *, device: Device = "cuda"
-) -> Tuple[np.ndarray, np.ndarray]:
-    """The device MP main loop; returns ``(p, in_tree)`` host arrays.
-
-    The f32 ``l``/``d`` loop state stays on the device — the caller
-    (:mod:`.mp`) rebuilds both in f64 from the returned structure, and
-    routes any vertex whose exact recreation cost overshoots θ (possible
-    when a borderline acceptance rounds the other way in f32) through the
-    SPT splice it already has for unreached versions."""
-    dev = resolve_device(device)
+def mp_state(ea: EdgeArrays, theta: float, dev: torch.device):
+    """The MP loop's inputs on ``dev``: ``(pd, pdelta, pphi, bound, l, d, p,
+    in_tree)``, the padded out-rows, θ + CONSTRAINT_TOL and the state after
+    the root's step (its out-row relaxed under θ)."""
     rows, root_dst, root_delta, root_phi = padded_out_rows(ea)
-    nvp, width = rows.ids.shape
-    pd = torch.from_numpy(rows.ids).to(dev)  # int32, for mp_reparent
-    pd64 = pd.long()                          # the loop's gathers and scatters
+    nvp = rows.nvp
+    pd = torch.from_numpy(rows.ids).to(dev)
     pdelta = torch.from_numpy(rows.w).to(dev)
     pphi = torch.from_numpy(rows.w2).to(dev)
-    inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
-    eps = _f32(EPS, dev)
     trash = torch.tensor(nvp + 1, dtype=torch.long, device=dev)
     # θ + CONSTRAINT_TOL as the JAX package computes it: an f32 add of θ
     # rounded to f32 and the tolerance rounded to f32
@@ -277,33 +263,28 @@ def modified_prim_core(
     p = torch.full((nvp + 2,), -1, dtype=torch.int32, device=dev)
     in_tree = torch.zeros((nvp + 2,), dtype=torch.bool, device=dev)
     in_tree[0] = True
-    # the root pops first: frontier-relax its whole out-row under θ
     rphi = torch.from_numpy(root_phi).to(dev)
     rdst = torch.from_numpy(root_dst).to(dev).long()
     ridx = torch.where(rphi <= bound, rdst, trash)
     d.index_copy_(0, ridx, rphi)
     l.index_copy_(0, ridx, torch.from_numpy(root_delta).to(dev))
     p.index_copy_(0, ridx, torch.zeros_like(ridx, dtype=torch.int32))
-    for _ in range(ea.n):
-        key = torch.where(in_tree[:nvp], inf, l[:nvp])
-        li, vi = min_argmin_1d(key)
-        active = torch.isfinite(li)
-        vi1 = vi.view(1)
-        in_tree.index_copy_(0, vi1.long(), in_tree.index_select(0, vi1) | active)
-        vs = pd64.index_select(0, vi1).view(width)
-        it = in_tree.index_select(0, vs)  # snapshot used by the frontier mask
-        # in-tree re-parenting (Algorithm 2 lines 10-17): sequential, each
-        # acceptance rewires the ancestor chain consulted by the next slot
-        mp_reparent(pd, pdelta, pphi, vi, active, in_tree, l, d, p)
-        # frontier relaxation under θ — one masked row op (padding carries
-        # +inf costs, so both conditions mask it out)
-        dts = pdelta.index_select(0, vi1).view(width)
-        nd = pphi.index_select(0, vi1).view(width) + d.index_select(0, vi1)
-        imp = active & ~it & (nd <= bound) & (dts < l.index_select(0, vs) - eps)
-        idx = torch.where(imp, vs, trash)
-        d.index_copy_(0, idx, nd)
-        l.index_copy_(0, idx, dts)
-        p.index_copy_(0, idx, vi.expand(width))
+    return pd, pdelta, pphi, bound, l, d, p, in_tree
+
+
+def modified_prim_core(
+    ea: EdgeArrays, theta: float, *, device: Device = "cuda"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The device MP main loop; returns ``(p, in_tree)`` host arrays.
+
+    The f32 ``l``/``d`` loop state stays on the device — the caller
+    (:mod:`.mp`) rebuilds both in f64 from the returned structure, and
+    routes any vertex whose exact recreation cost overshoots θ (possible
+    when a borderline acceptance rounds the other way in f32) through the
+    SPT splice it already has for unreached versions."""
+    dev = resolve_device(device)
+    pd, pdelta, pphi, bound, l, d, p, in_tree = mp_state(ea, theta, dev)
+    mp_loop(pd, pdelta, pphi, bound, l, d, p, in_tree, ea.n)
     nv = ea.n + 1
     # writable copies: the caller's SPT splice mutates these in place
     return (

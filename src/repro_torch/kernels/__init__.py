@@ -4,7 +4,7 @@ The kernels are CUDA C++ with a plain C interface, one library per source
 file in ``csrc/`` (``delta_kernels.cu``: the block-sparse delta path;
 ``block_kernels.cu``: the XOR delta and the block hash;
 ``segment_kernels.cu``: the solvers' segment min/argmin reductions and the
-Modified-Prim re-parenting step; ``attention_kernels.cu``: the dense LM's
+Prim and Modified-Prim step loops; ``attention_kernels.cu``: the dense LM's
 prefill attention).  At first use the package compiles every
 source with ``nvcc`` for Hopper (``sm_90a``) into ``build/`` at the root of
 the checkout — one ``nvcc`` process per source, all started together —
@@ -18,8 +18,8 @@ Every wrapper (:mod:`.block_diff`, :mod:`.xor_delta`, :mod:`.sparse_apply`,
 dispatches on the device of its tensors: CPU tensors take the plain
 PyTorch version in :mod:`.ref`; CUDA tensors launch the kernel or raise.
 There is no fallback from one to the other.  No wrapper writes into its
-arguments, except ``mp_reparent``, whose contract is an in-place update of
-the solver's own loop buffers.
+arguments, except ``prim_loop`` and ``mp_loop``, whose contract is an
+in-place update of the solver's own loop buffers.
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches`` (through :func:`count_launch`, safe across threads).
 """
@@ -65,9 +65,12 @@ _ENTRIES = {
         "segment_min_rows": [_i, _vp, _vp, _ll, _ll, _vp],
         "segment_argmin_rows": [_i, _vp, _vp, _ll, _ll, _vp],
         "segment_min_argmin_1d": [_i, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp],
-        "segment_mp_reparent": [
-            _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp,
-        ],
+        # pd, pw, best, bp, in_tree; nvp, width, steps; chunk
+        "segment_prim_loop": [_i] + [_vp] * 5 + [_ll] * 3 + [_i, _vp],
+        # pd, pdelta, pphi, bound, l, d, p, in_tree, mark; nvp, width, steps;
+        # chunk
+        "segment_mp_loop": [_i] + [_vp] * 9 + [_ll] * 3 + [_i, _vp],
+        "segment_loop_floor": [_i, _vp, _vp, _ll, _vp],
     }),
     "block_kernels": ("block_error_string", {
         "block_xor_delta": [_i, _vp, _vp, _vp, _ll, _vp],

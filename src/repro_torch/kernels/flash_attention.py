@@ -30,6 +30,17 @@ HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 64
 
 
+def kernel_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the CUDA kernel takes these inputs: hd in :data:`HEAD_DIMS`, at
+    most :data:`MAX_GROUP` query heads per KV head and, where the tensors lie
+    on a CUDA device, bf16.  The head-dim and group conditions hold on every
+    device, so a CPU run routes a shape as the card would; the dtype
+    condition does not, so an f32 CPU run keeps its route."""
+    if q.shape[-1] not in HEAD_DIMS or q.shape[2] // k.shape[2] > MAX_GROUP:
+        return False
+    return q.device.type != "cuda" or q.dtype == k.dtype == v.dtype == torch.bfloat16
+
+
 def flash_attention(
     q: torch.Tensor,   # (B, Sq, H, hd)
     k: torch.Tensor,   # (B, Sk, KV, hd)
@@ -65,8 +76,7 @@ def flash_attention(
     if is_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, softmax_scale=scale,
                                    block_k=block_k)
-    if (not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or hd not in HEAD_DIMS
-            or H // KV > MAX_GROUP):
+    if not kernel_takes(q, k, v):
         raise ValueError(
             f"the CUDA kernel takes bf16 with hd in {HEAD_DIMS} and at most "
             f"{MAX_GROUP} query heads per KV head, got {q.dtype}/{k.dtype}/{v.dtype} "

@@ -6,13 +6,15 @@ storage block per row: the XOR delta, the changed-block mask, the block
 hash, the sparse scatter and the fused chain. The shape is kept from the JAX
 package (where a block is one TPU VMEM tile) so that wire bytes match; on
 the GPU a block is simply 1024 words. The solver functions reduce padded f32
-rows and run one Modified-Prim re-parenting step. ``flash_attention_ref`` is
-the plain version of the attention kernel.
+rows and run the Prim and Modified-Prim step loops. ``flash_attention_ref``
+is the plain version of the attention kernel.
 
 These functions are what the kernel wrappers run for CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.  None of them
-writes into its arguments, except ``mp_reparent_ref``, which updates the
-solver loop's own ``l`` / ``d`` / ``p`` buffers in place, as its kernel does.
+writes into its arguments, except the step loops (``prim_loop_ref``,
+``mp_loop_ref``, and ``mp_reparent_ref``, one re-parenting pass of the MP
+loop), which update the solver's own loop buffers in place, as their
+kernels do.
 """
 
 from __future__ import annotations
@@ -170,6 +172,83 @@ def mp_reparent_ref(
         p[vj] = v
         d[vj] = dn
         l[vj] = cdel
+
+
+def prim_loop_ref(
+    pd: torch.Tensor,
+    pw: torch.Tensor,
+    best: torch.Tensor,
+    bp: torch.Tensor,
+    in_tree: torch.Tensor,
+    steps: int,
+) -> None:
+    """Prim's step loop over the undirected instance's padded out-rows, in
+    place on ``best`` / ``bp`` / ``in_tree`` (``nvp + 2`` entries; index
+    ``nvp + 1`` is the trash slot that masked scatters write).  Each step
+    selects the vertex of least key (``+inf`` for tree vertices) with
+    :func:`min_argmin_1d_ref`, puts it in the tree and, when its key is
+    finite, relaxes its out-row with one scatter."""
+    nvp, width = pd.shape
+    dev = pd.device
+    pd64 = pd.long()  # gathers/scatters index with it
+    inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
+    trash = torch.tensor(nvp + 1, dtype=torch.long, device=dev)
+    for _ in range(steps):
+        key = torch.where(in_tree[:nvp], inf, best[:nvp])
+        bmin, u = min_argmin_1d_ref(key)
+        active = torch.isfinite(bmin)
+        u1 = u.view(1)
+        in_tree.index_fill_(0, u1.long(), True)
+        vs = pd64.index_select(0, u1).view(width)
+        ws = pw.index_select(0, u1).view(width)
+        imp = active & ~in_tree.index_select(0, vs) & (ws < best.index_select(0, vs))
+        idx = torch.where(imp, vs, trash)
+        best.index_copy_(0, idx, ws)
+        bp.index_copy_(0, idx, u.expand(width))
+
+
+def mp_loop_ref(
+    pd: torch.Tensor,
+    pdelta: torch.Tensor,
+    pphi: torch.Tensor,
+    bound: torch.Tensor,
+    l: torch.Tensor,
+    d: torch.Tensor,
+    p: torch.Tensor,
+    in_tree: torch.Tensor,
+    steps: int,
+) -> None:
+    """The Modified-Prim step loop (Algorithm 2), in place on ``l`` / ``d`` /
+    ``p`` / ``in_tree`` (``nvp + 2`` entries, trash slot ``nvp + 1``).  Each
+    step selects the vertex of least ``l`` outside the tree, re-parents its
+    in-tree neighbours with :func:`mp_reparent_ref` and relaxes the others
+    under ``bound`` (0-d f32, θ + CONSTRAINT_TOL) with one scatter."""
+    nvp, width = pd.shape
+    dev = pd.device
+    pd64 = pd.long()  # the loop's gathers and scatters
+    inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
+    eps = torch.tensor(EPS, dtype=torch.float32, device=dev)
+    trash = torch.tensor(nvp + 1, dtype=torch.long, device=dev)
+    for _ in range(steps):
+        key = torch.where(in_tree[:nvp], inf, l[:nvp])
+        li, vi = min_argmin_1d_ref(key)
+        active = torch.isfinite(li)
+        vi1 = vi.view(1)
+        in_tree.index_copy_(0, vi1.long(), in_tree.index_select(0, vi1) | active)
+        vs = pd64.index_select(0, vi1).view(width)
+        it = in_tree.index_select(0, vs)  # snapshot used by the frontier mask
+        # in-tree re-parenting (Algorithm 2 lines 10-17): sequential, each
+        # acceptance rewires the ancestor chain consulted by the next slot
+        mp_reparent_ref(pd, pdelta, pphi, vi, active, in_tree, l, d, p)
+        # frontier relaxation under θ — one masked row op (padding carries
+        # +inf costs, so both conditions mask it out)
+        dts = pdelta.index_select(0, vi1).view(width)
+        nd = pphi.index_select(0, vi1).view(width) + d.index_select(0, vi1)
+        imp = active & ~it & (nd <= bound) & (dts < l.index_select(0, vs) - eps)
+        idx = torch.where(imp, vs, trash)
+        d.index_copy_(0, idx, nd)
+        l.index_copy_(0, idx, dts)
+        p.index_copy_(0, idx, vi.expand(width))
 
 
 # -------------------------------------------------------------- attention

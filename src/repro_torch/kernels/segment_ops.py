@@ -1,4 +1,4 @@
-"""Segment min / argmin over padded rows, and the Modified-Prim re-parenting.
+"""Segment min / argmin over padded rows, and the Prim / Modified-Prim loops.
 
 The device solver backend (:mod:`repro_torch.core.solvers.torch_backend`)
 lays the version graph's CSR rows out as dense ``(rows, width)`` f32
@@ -8,15 +8,17 @@ solvers' inner loops:
 * :func:`segment_min_rows`    — per-row minimum (the Bellman-Ford relaxation);
 * :func:`segment_argmin_rows` — per-row first-minimum index, int32;
 * :func:`min_argmin_1d`       — global ``(min, first argmin)`` of a flat
-  vector as device scalars (vertex selection in Prim / MP, ρ-argmax in LMG);
-* :func:`mp_reparent`         — MP's sequential in-tree re-parenting of one
-  step, in place on the loop's own ``l`` / ``d`` / ``p`` buffers.
+  vector as device scalars (the ρ-argmax of LMG);
+* :func:`prim_loop`, :func:`mp_loop` — the whole Prim / Modified-Prim step
+  loop (vertex selection, re-parenting, relaxation) in one launch, in place
+  on the solver's own loop buffers.
 
 The first three replace ``_row_call`` (``pl.pallas_call``) of the JAX
 package's ``src/repro/kernels/segment_ops.py`` as reached from its
-``segment_min_rows``, ``segment_argmin_rows`` and ``min_argmin_1d``;
-``mp_reparent`` is the re-parenting ``fori_loop`` of its ``_mp_jit``.  The
-CUDA kernels are in ``csrc/segment_kernels.cu``, where their bound and
+``segment_min_rows``, ``segment_argmin_rows`` and ``min_argmin_1d``; the
+loops are the ``fori_loop`` s of its ``core/solvers/jax_backend.py``
+``_prim_jit`` and ``_mp_jit``, whose selection is that ``min_argmin_1d``.
+The CUDA kernels are in ``csrc/segment_kernels.cu``, where their bound and
 design are noted.  NaN is the minimum and propagates, ties go to the first
 index, and an all-``+inf`` input gives ``(+inf, 0)``, as with XLA's
 reductions.
@@ -31,7 +33,8 @@ import torch
 from . import count_launch, is_cpu, launch
 from .ref import (
     min_argmin_1d_ref,
-    mp_reparent_ref,
+    mp_loop_ref,
+    prim_loop_ref,
     segment_argmin_rows_ref,
     segment_min_rows_ref,
 )
@@ -44,6 +47,9 @@ MAX_INT32_ELEMS = (1 << 31) - 1 - LANE
 
 _MAX_PARTS = 256   # first-stage blocks of the 1d reduction (as in the .cu)
 _PER_PART = 2048   # elements per first-stage block, at least
+
+LOOP_CHUNK = 256          # keys per chunk of the loops' selection, at least
+MAX_LOOP_CHUNKS = 2048    # chunk minima the loop kernels hold (kMaxChunks)
 
 
 def _check_matrix(x: torch.Tensor) -> None:
@@ -121,54 +127,104 @@ def min_argmin_1d(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return val, idx
 
 
-def mp_reparent(
+def loop_chunk(nvp: int) -> int:
+    """Keys per chunk of the step loops' selection: 256, or more where that
+    would give more chunks than the kernels hold in shared memory (2,048:
+    ``kMaxChunks``), so that every row count the padded layouts admit
+    (up to 2**22) is taken."""
+    return max(LOOP_CHUNK, -(-nvp // MAX_LOOP_CHUNKS))
+
+
+def _check_loop(pd: torch.Tensor, costs, state: dict, steps: int) -> None:
+    if pd.dtype != torch.int32 or pd.dim() != 2 or pd.numel() == 0:
+        raise ValueError(f"pd must be a non-empty (nvp, width) int32 matrix, got "
+                         f"{pd.dtype} {tuple(pd.shape)}")
+    nvp = pd.shape[0]
+    for name, t in costs.items():
+        if t.dtype != torch.float32 or t.shape != pd.shape:
+            raise ValueError(f"{name} must be float32 of pd's shape {tuple(pd.shape)}")
+    for name, (t, dtype) in state.items():
+        if t.dtype != dtype or tuple(t.shape) != (nvp + 2,):
+            raise ValueError(f"{name} must be {dtype} of nvp + 2 = {nvp + 2} entries, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+
+
+def prim_loop(
+    pd: torch.Tensor,
+    pw: torch.Tensor,
+    best: torch.Tensor,
+    bp: torch.Tensor,
+    in_tree: torch.Tensor,
+    steps: int,
+) -> None:
+    """Prim's ``steps`` steps over the padded out-rows, in one launch.
+
+    pd, pw        : (nvp, width) int32 ids (padding ``nvp``) / f32 weights
+                    (padding +inf) of the undirected instance's out-rows
+    best, bp      : (nvp + 2,) f32 / int32 key and parent of each vertex
+    in_tree       : (nvp + 2,) bool
+    best, bp and in_tree are the caller's loop state, updated in place (the
+    root's row already relaxed, as before step 0).
+    """
+    _check_loop(pd, {"pw": pw}, {"best": (best, torch.float32),
+                                 "bp": (bp, torch.int32),
+                                 "in_tree": (in_tree, torch.bool)}, steps)
+    if is_cpu(pd, pw, best, bp, in_tree):
+        prim_loop_ref(pd, pw, best, bp, in_tree, steps)
+        return
+    _check_contiguous(pd=pd, pw=pw, best=best, bp=bp, in_tree=in_tree)
+    nvp, width = pd.shape
+    launch("segment_prim_loop", pd.device, pd.data_ptr(), pw.data_ptr(),
+           best.data_ptr(), bp.data_ptr(), in_tree.data_ptr(), nvp, width,
+           steps, loop_chunk(nvp))
+    count_launch(prim_loop)
+
+
+def mp_loop(
     pd: torch.Tensor,
     pdelta: torch.Tensor,
     pphi: torch.Tensor,
-    vi: torch.Tensor,
-    active: torch.Tensor,
-    in_tree: torch.Tensor,
+    bound: torch.Tensor,
     l: torch.Tensor,
     d: torch.Tensor,
     p: torch.Tensor,
+    in_tree: torch.Tensor,
+    steps: int,
 ) -> None:
-    """One MP step's in-tree re-parenting over the selected vertex's row.
+    """Modified Prim's ``steps`` steps over the padded out-rows, in one
+    launch.
 
-    pd / pdelta / pphi : (nvp, width) int32 / f32 / f32 padded out-rows
-                         (padding ids are ``nvp``)
-    vi, active         : 0-d int32 selected vertex and 0-d bool step flag,
-                         read where they lie (device memory on a card)
-    in_tree            : (nvp + 2,) bool
-    l, d, p            : (nvp + 2,) f32 / f32 / int32 loop state, updated in
-                         place — the caller's own loop buffers
+    pd, pdelta, pphi : (nvp, width) int32 ids (padding ``nvp``) / f32 Δ / f32
+                       Φ (padding +inf) of the out-rows
+    bound            : 0-d f32, θ + CONSTRAINT_TOL as an f32 add, read where
+                       it lies (device memory on a card)
+    l, d, p, in_tree : (nvp + 2,) f32 / f32 / int32 / bool loop state, updated
+                       in place (the root's row already relaxed)
     """
-    nvp, width = pd.shape
-    if pd.dtype != torch.int32 or p.dtype != torch.int32 or vi.dtype != torch.int32:
-        raise ValueError("pd, p and vi must be int32")
-    if active.dtype != torch.bool or in_tree.dtype != torch.bool:
-        raise ValueError("active and in_tree must be bool")
-    if not all(t.dtype == torch.float32 for t in (pdelta, pphi, l, d)):
-        raise ValueError("pdelta, pphi, l and d must be float32")
-    if pdelta.shape != pd.shape or pphi.shape != pd.shape:
-        raise ValueError("pd, pdelta and pphi must share one (nvp, width) shape")
-    if vi.numel() != 1 or active.numel() != 1:
-        raise ValueError("vi and active must be single elements")
-    for name, t in (("in_tree", in_tree), ("l", l), ("d", d), ("p", p)):
-        if tuple(t.shape) != (nvp + 2,):
-            raise ValueError(f"{name} must have nvp + 2 = {nvp + 2} entries")
-    if is_cpu(pd, pdelta, pphi, vi, active, in_tree, l, d, p):
-        mp_reparent_ref(pd, pdelta, pphi, vi, active, in_tree, l, d, p)
+    _check_loop(pd, {"pdelta": pdelta, "pphi": pphi},
+                {"l": (l, torch.float32), "d": (d, torch.float32),
+                 "p": (p, torch.int32), "in_tree": (in_tree, torch.bool)}, steps)
+    if bound.dtype != torch.float32 or bound.numel() != 1:
+        raise ValueError("bound must be a single float32 element")
+    if is_cpu(pd, pdelta, pphi, bound, l, d, p, in_tree):
+        mp_loop_ref(pd, pdelta, pphi, bound, l, d, p, in_tree, steps)
         return
-    _check_contiguous(pd=pd, pdelta=pdelta, pphi=pphi, in_tree=in_tree,
-                      l=l, d=d, p=p)
-    launch("segment_mp_reparent", pd.device, pd.data_ptr(), pdelta.data_ptr(),
-           pphi.data_ptr(), vi.data_ptr(), active.data_ptr(),
-           in_tree.data_ptr(), l.data_ptr(), d.data_ptr(), p.data_ptr(),
-           nvp, width)
-    count_launch(mp_reparent)
+    _check_contiguous(pd=pd, pdelta=pdelta, pphi=pphi, l=l, d=d, p=p,
+                      in_tree=in_tree)
+    nvp, width = pd.shape
+    # the chain walk's marks: a step stamps its vertices with its own number
+    mark = torch.zeros((nvp + 2,), dtype=torch.int32, device=pd.device)
+    launch("segment_mp_loop", pd.device, pd.data_ptr(), pdelta.data_ptr(),
+           pphi.data_ptr(), bound.data_ptr(), l.data_ptr(), d.data_ptr(),
+           p.data_ptr(), in_tree.data_ptr(), mark.data_ptr(), nvp, width,
+           steps, loop_chunk(nvp))
+    count_launch(mp_loop)
 
 
 segment_min_rows.launches = 0
 segment_argmin_rows.launches = 0
 min_argmin_1d.launches = 0
-mp_reparent.launches = 0
+prim_loop.launches = 0
+mp_loop.launches = 0

@@ -3,6 +3,8 @@ names that change with the flags, the source or any header beside it, so
 that a stale library in build/ is never loaded.  A stand-in for nvcc records
 the commands ``build`` runs."""
 
+import ctypes
+import re
 import stat
 import sys
 
@@ -92,3 +94,35 @@ def test_build_runs_each_sources_own_command_once(csrc, monkeypatch):
     again = kernels.build()
     assert again["toy_kernels"] != paths["toy_kernels"] and again["toy_kernels"].exists()
     assert again["other_kernels"] != paths["other_kernels"]  # every header counts
+
+
+_C_TYPES = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+            "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def test_entries_match_their_c_signatures():
+    """Every entry of the load table is defined in its source, with one
+    argtype of the right width for each C parameter (a pointer or a long
+    long passed as a 32-bit int would be cut)."""
+    for stem, (err_fn, entries) in kernels._ENTRIES.items():
+        src = (kernels.CSRC / f"{stem}.cu").read_text()
+        assert re.search(rf"const char\* {err_fn}\(int err\)", src), err_fn
+        for entry, argtypes in entries.items():
+            m = re.search(rf"\nint {entry}\(([^)]*)\)", src)
+            assert m, f"{stem}: no entry {entry}"
+            params = [" ".join(p.split()) for p in m.group(1).split(",")]
+            kinds = [next(c for t, c in _C_TYPES.items()
+                          if p.replace("const ", "").startswith(t)) for p in params]
+            assert kinds == list(argtypes), entry
+
+
+def test_segment_library_runs_the_solver_loops():
+    """The Prim / MP loop kernels are loaded, and the one-thread re-parenting
+    step they replaced is gone from the table and the source."""
+    entries = kernels._ENTRIES["segment_kernels"][1]
+    assert {"segment_prim_loop", "segment_mp_loop", "segment_loop_floor"} <= set(entries)
+    assert "segment_mp_reparent" not in entries
+    src = (kernels.CSRC / "segment_kernels.cu").read_text()
+    assert "mp_reparent" not in src
+    assert kernels.library_path(kernels.sources()["segment_kernels"]).name.startswith(
+        "libsegment_kernels_")

@@ -1,9 +1,9 @@
-"""What the design choices of two CUDA kernels are worth, measured on the card.
+"""What the design choices of four CUDA kernels are worth, measured on the card.
 
 Not a pytest module (it needs a CUDA card and ``nvcc``): run it by hand on
 the GPU machine from the root of a checkout,
 
-    PYTHONPATH=src python tests/torch_kernel_ablation_check.py
+    PYTHONPATH=src python tests/torch_kernel_ablation_check.py [--only flash,xor,loops]
 
 It builds variants of the committed sources by text substitution (into
 ``build/ablation/``; a substitution whose text is no longer in the source
@@ -24,6 +24,13 @@ committed kernel and the library call in one process:
   streaming hints (``ld/st.global.cs``); a grid-stride loop over a grid
   sized to the card (SMs x resident CTAs) with the hints; beside
   ``torch.bitwise_xor``.  Each variant must be bit-identical.
+* ``segment_kernels.cu``'s Prim and Modified-Prim loops on the solver
+  phase's graphs at n = 66,000 (``chip_smoke.solver_graph``): the committed
+  kernels at chunks of 128, 256 (the default) and 512 keys, each
+  bit-identical to the default; then a variant that counts the clock64
+  cycles of each stage of a step (the selection, the relaxation, the chain
+  walk with its second pass, the recomputation of the dirty chunks) in the
+  block's first thread, and the steps that walked a chain.
 
 The last line is one JSON object with every time, and the card's name and
 power limit.
@@ -187,23 +194,152 @@ def build(jobs: dict) -> dict:
     return libs
 
 
-def main() -> int:
+# clock64 cycles of each stage of a loop step, thread 0 of the block, per
+# kernel (0 Prim, 1 MP): the stages end at the step's block barriers
+LOOP_STAGES = ("selection", "relaxation", "chain walk", "chunk recompute", "steps",
+               "total", "chain walks")
+LOOP_CYCLES = [
+    ("namespace {\n", "namespace {\n__device__ long long g_loop_cycles[2][7];\n"),
+    # Prim
+    ("  init_chunks(s, in_tree, best, nchunks, chunk, nvp);\n  __syncthreads();\n",
+     "  init_chunks(s, in_tree, best, nchunks, chunk, nvp);\n  __syncthreads();\n"
+     "  long long cy[7] = {0}, _t;\n  const long long _t0 = clock64();\n"),
+    ("    select_min(s, nchunks, bmin, u);\n",
+     "    _t = clock64();\n    select_min(s, nchunks, bmin, u);\n"
+     "    cy[0] += clock64() - _t;\n    _t = clock64();\n"),
+    ("    __syncthreads();\n    recompute_dirty(s, in_tree, best, chunk, nvp);\n    __syncthreads();\n",
+     "    __syncthreads();\n    cy[1] += clock64() - _t;\n    _t = clock64();\n"
+     "    recompute_dirty(s, in_tree, best, chunk, nvp);\n    __syncthreads();\n"
+     "    cy[3] += clock64() - _t;\n    ++cy[4];\n"),
+    ("    if (threadIdx.x == 0) s.ndirty = 0;  // next listed after next selection\n  }\n}\n",
+     "    if (threadIdx.x == 0) s.ndirty = 0;  // next listed after next selection\n  }\n"
+     "  cy[5] = clock64() - _t0;\n"
+     "  if (threadIdx.x == 0) for (int i = 0; i < 7; ++i) g_loop_cycles[0][i] = cy[i];\n}\n"),
+    # MP
+    ("  init_chunks(s, in_tree, l, nchunks, chunk, nvp);\n  __syncthreads();\n",
+     "  init_chunks(s, in_tree, l, nchunks, chunk, nvp);\n  __syncthreads();\n"
+     "  long long cy[7] = {0}, _t;\n  const long long _t0 = clock64();\n"),
+    ("    select_min(s, nchunks, li, vi);\n",
+     "    _t = clock64();\n    select_min(s, nchunks, li, vi);\n"
+     "    cy[0] += clock64() - _t;\n    _t = clock64();\n"),
+    ("    if (__syncthreads_or(cand)) {\n",
+     "    const int _any = __syncthreads_or(cand);\n    cy[1] += clock64() - _t;\n"
+     "    _t = clock64();\n    if (_any) {\n      ++cy[6];\n"),
+    ("    recompute_dirty(s, in_tree, l, chunk, nvp);\n    __syncthreads();\n"
+     "    if (threadIdx.x == 0) s.ndirty = 0;\n  }\n}\n",
+     "    cy[2] += clock64() - _t;\n    _t = clock64();\n"
+     "    recompute_dirty(s, in_tree, l, chunk, nvp);\n    __syncthreads();\n"
+     "    cy[3] += clock64() - _t;\n    ++cy[4];\n"
+     "    if (threadIdx.x == 0) s.ndirty = 0;\n  }\n  cy[5] = clock64() - _t0;\n"
+     "  if (threadIdx.x == 0) for (int i = 0; i < 7; ++i) g_loop_cycles[1][i] = cy[i];\n}\n"),
+    ('}  // extern "C"', 'int read_loop_cycles(void* host) {\n'
+     '  return static_cast<int>(cudaMemcpyFromSymbol(host, g_loop_cycles, sizeof(g_loop_cycles)));\n'
+     '}\n\n}  // extern "C"'),
+]
+LOOP_CHUNKS = (128, 256, 512)
+
+
+def loop_ablation(lib, cycles_lib, dev, times: dict) -> None:
+    """The loops at each chunk size, then their cycles by stage."""
+    import numpy as np
+
+    from chip_smoke import SOLVER_N, solver_graph
+    from repro_torch.core import OptimizeSpec, optimize
+    from repro_torch.core.solvers import torch_backend as tb
+
+    gu, gd = solver_graph(SOLVER_N, False), solver_graph(SOLVER_N, True)
+    theta = optimize(gd, OptimizeSpec.problem(2, backend="numpy")).solution.max_recreation() * 1.5
+    stream = torch.cuda.current_stream().cuda_stream
+    entries = kernels._ENTRIES["segment_kernels"][1]
+    for which in (lib, cycles_lib):
+        for entry in ("segment_prim_loop", "segment_mp_loop"):
+            fn = getattr(which, entry)
+            fn.argtypes, fn.restype = entries[entry], ctypes.c_int
+    prim = tb.prim_state(gu.arrays(), dev)
+    mp = tb.mp_state(gd.arrays(), theta, dev)
+    nvp, width = prim[0].shape
+    mark = torch.zeros(mp[0].shape[0] + 2, dtype=torch.int32, device=dev)
+    loops = {
+        "prim": (prim[2:], lambda which, st, c: which.segment_prim_loop(
+            0, prim[0].data_ptr(), prim[1].data_ptr(), *(t.data_ptr() for t in st),
+            nvp, width, SOLVER_N, c, stream)),
+        "mp": (mp[4:], lambda which, st, c: which.segment_mp_loop(
+            0, *(t.data_ptr() for t in mp[:4]), *(t.data_ptr() for t in st),
+            mark.zero_().data_ptr(), nvp, mp[0].shape[1], SOLVER_N, c, stream)),
+    }
+    for name, (init, call) in loops.items():
+        work = [t.clone() for t in init]
+
+        def run(which, c):
+            for w, t in zip(work, init):
+                w.copy_(t)
+            assert call(which, work, c) == 0
+
+        run(lib, 256)
+        torch.cuda.synchronize()
+        want = [t.clone() for t in work]
+        for rep in range(2):
+            for c in LOOP_CHUNKS:
+                ms = cuda_ms(lambda: run(lib, c), iters=3, warmup=1)
+                if not all(torch.equal(a, b) for a, b in zip(work, want)):
+                    raise SystemExit(f"{name} loop at chunk {c}: differs from chunk 256")
+                times.setdefault(f"{name} loop chunk {c}", []).append(ms)
+            print(f"{name} loop, n = {SOLVER_N}: " + "  ".join(
+                f"chunk {c} {times[f'{name} loop chunk {c}'][-1]:.3f} ms" for c in LOOP_CHUNKS),
+                flush=True)
+        run(cycles_lib, 256)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(work, want)):
+            raise SystemExit(f"{name} loop, cycle-counting variant: differs")
+    cyc = np.zeros((2, len(LOOP_STAGES)), dtype=np.int64)
+    cycles_lib.read_loop_cycles.argtypes = [ctypes.c_void_p]
+    cycles_lib.read_loop_cycles.restype = ctypes.c_int
+    assert cycles_lib.read_loop_cycles(cyc.ctypes.data) == 0
+    for k, name in enumerate(loops):
+        c = {n: int(x) for n, x in zip(LOOP_STAGES, cyc[k])}
+        steps = max(c["steps"], 1)
+        print(f"{name} loop cycles (thread 0, chunk 256): " + ", ".join(
+            f"{n} {c[n]} ({c[n] / c['total']:.3f}, {c[n] / steps:.0f} a step)"
+            for n in LOOP_STAGES[:4]) + f"; {c['steps']} steps, {c['total']} cycles, "
+            f"{c['chain walks']} chain walks", flush=True)
+        times[f"{name} loop cycles"] = c
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="flash,xor,loops",
+                    help="comma-separated subset of flash, xor, loops")
+    only = set(ap.parse_args(argv).only.split(","))
     if not torch.cuda.is_available():
         print("torch_kernel_ablation_check: no CUDA device", file=sys.stderr)
         return 2
     OUT.mkdir(parents=True, exist_ok=True)
-    jobs = {f"flash {n}": ("attention_kernels", variant("attention_kernels", n, subs))
-            for n, subs in FLASH.items()}
-    jobs["flash cycles"] = ("attention_kernels", variant("attention_kernels", "cycles", CYCLES))
+    jobs = {}
+    if "flash" in only:
+        jobs = {f"flash {n}": ("attention_kernels", variant("attention_kernels", n, subs))
+                for n, subs in FLASH.items()}
+        jobs["flash cycles"] = ("attention_kernels",
+                                variant("attention_kernels", "cycles", CYCLES))
     xor = {"committed": [], "streaming hints": XOR_CS,
            "card-sized grid-stride, hints": xor_grid_stride_subs()}
-    jobs.update({f"xor {n}": ("block_kernels", variant("block_kernels", n, subs))
-                 for n, subs in xor.items()})
+    if "xor" in only:
+        jobs.update({f"xor {n}": ("block_kernels", variant("block_kernels", n, subs))
+                     for n, subs in xor.items()})
+    if "loops" in only:
+        jobs["loops"] = ("segment_kernels", variant("segment_kernels", "committed", []))
+        jobs["loop cycles"] = ("segment_kernels",
+                               variant("segment_kernels", "cycles", LOOP_CYCLES))
     libs = build(jobs)
     dev = torch.device("cuda", 0)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     g = torch.Generator(device=dev).manual_seed(1505_05211)
     times: dict = {}
+    if "loops" in only:
+        loop_ablation(libs["loops"], libs["loop cycles"], dev, times)
+    if "flash" not in only:
+        return finish(times, xor if "xor" in only else {}, libs, dev, g, stream)
 
     B, S, H, KV, hd = 8, 2048, 24, 8, 128
     q = torch.randn((B, S, H, hd), generator=g, device=dev).to(torch.bfloat16)
@@ -256,7 +392,13 @@ def main() -> int:
               f"softmax {mean[4] / mean[9]:.0f}, PV wait {mean[5] / mean[9]:.0f} cycles")
     times["flash cycles"] = cycles
     del q, k, v, o, want, qt, kt, vt
+    return finish(times, xor if "xor" in only else {}, libs, dev, g, stream)
 
+
+def finish(times: dict, xor: dict, libs: dict, dev, g, stream) -> int:
+    """The XOR variants (if any), then the card's name and every time."""
+    if not xor:
+        return report(times)
     a = torch.randint(-2**31, 2**31 - 1, (32768, 8, 128), dtype=torch.int32, device=dev,
                       generator=g)
     b = torch.randint(-2**31, 2**31 - 1, (32768, 8, 128), dtype=torch.int32, device=dev,
@@ -283,7 +425,10 @@ def main() -> int:
             times.setdefault(f"xor {name}", []).append(cuda_ms(lambda: xor_call(lib)))
         print("  ".join(f"{n} {t[-1]:.6f}" for n, t in times.items() if n.startswith("xor")),
               flush=True)
+    return report(times)
 
+
+def report(times: dict) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
