@@ -38,10 +38,15 @@ use (into ``build/``).  Phases:
     over rows, the global min/argmin) at the main path's shapes — the
     131,072 x 32 in-edge matrix of a 66,000-version graph, a 2**20-element
     LMG candidate vector, a 131,072-element key — and in edge cases (ties,
-    all-+inf rows, NaN, widths that are not a multiple of 32, a single row,
-    lengths that are not a multiple of 128), each held bit for bit against
-    its plain version and timed beside its bound and ``torch.amin`` /
-    ``torch.argmin`` / ``torch.min``.  Then the Prim and Modified-Prim step
+    all-+inf rows, NaN, -inf, rows holding both signed zeros, widths 1, 8,
+    19, 24, 32, 37, 40 and 200, a single row, contiguous views that are not
+    16-byte aligned, lengths 2**20 + 3 and others that are not a multiple of
+    128 with the minimum in the scalar head or tail, two streams at once),
+    each held bit for bit (a float's sign of zero included) against its
+    plain version and timed beside its bound, ``torch.amin`` /
+    ``torch.argmin`` / ``torch.min`` and an empty kernel's time (the launch
+    floor); ``torch.profiler`` must see one ``cudaLaunchKernel`` a
+    ``min_argmin_1d`` call.  Then the Prim and Modified-Prim step
     loops (one launch a solve), bit for bit in every state array, on phase
     (f)'s graphs at 2,000 and 66,000 versions and in edge cases (ties, NaN
     keys, unreachable versions, widths 40 and above 1,024, a single vertex,
@@ -117,7 +122,8 @@ the kernel checks, which compare kernels with their plain versions, are not
 counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
 result line).  The last lines are the card's name and power limit
 (``nvidia-smi``), one JSON object with each kernel's numbers, and the
-result line ``{"ok": true, "device": {...}}``.
+result line ``{"ok": true, "device": {...}}``; the segment kernels' entries
+of that object also carry ``launch_floor_ms``.
 """
 
 from __future__ import annotations
@@ -727,15 +733,18 @@ LMG_CANDIDATES = 1 << 20  # ~700,000 candidate edges, bucketed
 
 
 def same_bits(got, want, what: str) -> float:
-    """Bit-for-bit equality (NaN == NaN); returns the max abs error (0)."""
+    """Bit-for-bit equality (a float's sign of zero included; NaN == NaN,
+    whatever its bits); returns the max abs error (0)."""
     import torch
 
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{what}: {got.dtype} {tuple(got.shape)} != {want.dtype} {tuple(want.shape)}")
     if got.dtype.is_floating_point:
-        same = torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(
-            torch.nan_to_num(got, nan=0.0), torch.nan_to_num(want, nan=0.0))
+        nan = torch.isnan(got)
+        same = torch.equal(nan, torch.isnan(want)) and torch.equal(
+            torch.where(nan, 0, got.view(torch.int32)),
+            torch.where(nan, 0, want.view(torch.int32)))
         check(same, f"{what}: differs from its plain version")
         fin = torch.isfinite(got) & torch.isfinite(want)
         return float((got[fin].double() - want[fin].double()).abs().max()) if fin.any() else 0.0
@@ -759,11 +768,42 @@ def padded_rows_like(g, rows: int, width: int, dev):
     return x.contiguous()
 
 
+def with_signed_zeros(x):
+    """``x`` with rows 10-14 holding both zeros in several orders (XLA's min
+    gives -0.0 in each; the argmin takes the first zero) and row 15 -inf."""
+    w = x.shape[1]
+    x[10:16] = 1.0
+    x[10, :] = 0.0
+    x[10, w - 1] = -0.0                        # -0 last, behind +0s
+    x[11, :] = 0.0
+    x[11, 0] = -0.0                            # -0 first
+    x[12, ::2] = -0.0
+    x[12, 1::2] = 0.0                          # alternating
+    x[13, w // 2] = 0.0
+    x[13, w - 1] = -0.0                        # +0, then -0 in another lane
+    x[14, w - 1] = -0.0                        # a lone -0
+    x[15, w // 3] = -float("inf")
+    return x
+
+
+def at_offset(x, elems: int = 1):
+    """A contiguous copy of ``x`` whose data starts ``elems`` floats past an
+    allocation's start (not 16-byte aligned for elems 1-3)."""
+    import torch
+
+    buf = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    view = buf[elems:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def segment_checks(dev) -> list:
     """Phase (e): each solver kernel against its plain version at the main
     path's shapes and in edge cases, bit for bit, and timed."""
     import torch
+    from torch.autograd import DeviceType
 
+    from repro_torch import kernels
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_ops import (
         min_argmin_1d,
@@ -774,6 +814,7 @@ def segment_checks(dev) -> list:
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     nvp, width = 131_072, 32
     results = []
+    floor_ms = cuda_ms(lambda: kernels.launch("segment_launch_floor", dev))
 
     # per-row reductions: the in-edge matrix, then edge cases
     x = padded_rows_like(g, nvp, width, dev)
@@ -783,18 +824,30 @@ def segment_checks(dev) -> list:
     edge[7, 5] = torch.nan
     edge[8, [2, 30]] = torch.nan                   # two NaNs: the first wins
     edge[9, :] = 1.5                               # a row of ties
+    with_signed_zeros(edge)
     cases = {
-        "width 37, NaN, ties, all-inf": edge,
+        "width 37, NaN, ties, all-inf, signed zeros": edge,
         "width 19": padded_rows_like(g, 1000, 19, dev),
         "width 1": padded_rows_like(g, 64, 1, dev),
         "one row": padded_rows_like(g, 1, 32, dev),
         "width 200": padded_rows_like(g, 33, 200, dev),
+        "rows 5,003 x 32 at an odd offset": at_offset(padded_rows_like(g, 5003, 32, dev)),
+        "width 8 at an odd offset": at_offset(padded_rows_like(g, 300, 8, dev), 3),
     }
+    for w in (8, 24, 32, 40):
+        cases[f"width {w}, signed zeros"] = with_signed_zeros(padded_rows_like(g, 1001, w, dev))
     for label, c in cases.items():
         same_bits(segment_min_rows(c), ref.segment_min_rows_ref(c), f"segment_min_rows ({label})")
         same_bits(segment_argmin_rows(c), ref.segment_argmin_rows_ref(c), f"segment_argmin_rows ({label})")
     check(int(segment_argmin_rows(edge)[8]) == 2, "segment_argmin_rows: first NaN must win")
     check(bool(torch.isnan(segment_min_rows(edge)[7])), "segment_min_rows: NaN must propagate")
+    for w, c in ((37, edge), (8, cases["width 8, signed zeros"])):
+        m = segment_min_rows(c)[10:15]
+        check(bool((m == 0).all() and torch.signbit(m).all()),
+              f"segment_min_rows: width {w}: a zero minimum must be -0.0 where the row holds one")
+        check(segment_argmin_rows(c)[10:15].tolist() == [0, 0, 0, w // 2, w - 1],
+              f"segment_argmin_rows: width {w}: the first zero must win")
+    log(f"phase e: segment rows: {len(cases) + 1} cases bit-identical to the plain versions")
     row_bytes = nvp * width * 4 + nvp * 4
     results.append({
         "name": "segment_min_rows", "route": "cuda",
@@ -818,7 +871,7 @@ def segment_checks(dev) -> list:
         "bound_ms": bound_ms(row_bytes), "bound_by": "bytes",
         "library_ms": cuda_ms(lambda: torch.argmin(x, 1)),
     })
-    del x
+    del x, cases, edge
 
     # global (min, first argmin): an LMG candidate vector (-rho: mostly
     # +1 for infeasible candidates, a few scored) and a Prim/MP key
@@ -835,46 +888,109 @@ def segment_checks(dev) -> list:
     cand[scored[:3]] = cand.min() - 1              # a three-way tie at the min
     key = torch.rand(nvp, device=dev, generator=g) * 1e6
     key[torch.rand(nvp, device=dev, generator=g) < 0.6] = torch.inf
-    err_1d = max(both(cand, "LMG candidates"), both(key, "Prim/MP key"))
+    err_1d = max(both(cand, "LMG candidates, n = 2**20"), both(key, "Prim/MP key"))
     nan_v = key.clone()
     nan_v[[77_777, 99_999]] = torch.nan
-    for label, v in {
+    plus3 = torch.cat([cand, torch.ones(3, device=dev)])
+    tail_min, head_min = plus3.clone(), plus3.clone()
+    tail_min[-2:] = cand.min() - 2                 # the least two in the scalar tail
+    zeros = torch.ones(1 << 16, device=dev)
+    zeros[[40_001, 50_000]] = -0.0
+    zeros[[40_000, 60_000]] = 0.0                  # +0 first: the value is +0.0
+    neg_zeros = zeros.clone()
+    neg_zeros[40_000] = -0.0                       # -0 first: the value is -0.0
+    cases = {
         "NaN": nan_v,
         "all +inf": torch.full((nvp,), torch.inf, device=dev),
+        "n = 2**20 + 3": plus3,
+        "n = 2**20 + 3, min in the tail": tail_min,
         "n = 1_000_003": torch.rand(1_000_003, device=dev, generator=g),
         "n = 1": torch.rand(1, device=dev, generator=g),
         "n = 129, min last": torch.cat([torch.ones(128, device=dev),
                                         torch.zeros(1, device=dev)]),
         "all ties": torch.full((5000,), 2.0, device=dev),
-    }.items():
+        "signed zeros, +0 first": zeros,
+        "signed zeros, -0 first": neg_zeros,
+        "-inf": torch.cat([key, torch.tensor([-float("inf")] * 2, device=dev)]),
+    }
+    for k in (1, 2, 3):                            # contiguous views off 16-byte alignment
+        cases[f"LMG candidates from element {k}"] = cand.view(-1)[k:]
+        head_min[k] = cand.min() - 3               # the least in the scalar head
+        cases[f"n = 2**20 + 3 from element {k}, min in the head"] = head_min.view(-1)[k:]
+    for label, v in cases.items():
         both(v, label)
     check(int(min_argmin_1d(nan_v)[1]) == 77_777, "min_argmin_1d: first NaN must win")
     check(int(min_argmin_1d(torch.full((nvp,), torch.inf, device=dev))[1]) == 0,
           "min_argmin_1d: all +inf must give index 0")
+    zv, zi = min_argmin_1d(zeros)
+    check(int(zi) == 40_000 and float(zv) == 0 and not bool(torch.signbit(zv)),
+          "min_argmin_1d: the first zero must win, with its own sign")
+    zv, zi = min_argmin_1d(neg_zeros)
+    check(int(zi) == 40_000 and float(zv) == 0 and bool(torch.signbit(zv)),
+          "min_argmin_1d: the first zero must win, with its own sign")
+    check(int(min_argmin_1d(tail_min)[1]) == LMG_CANDIDATES + 1,
+          "min_argmin_1d: the least element of the scalar tail must win")
+
+    # two streams at once: each keeps its own workspace and ticket
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    inputs = [cand, plus3]
+    outs = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(50):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k].append(min_argmin_1d(inputs[k]))
+    torch.cuda.synchronize()
+    for k, v in enumerate(inputs):
+        wv, wi = ref.min_argmin_1d_ref(v)
+        for gv, gi in outs[k]:
+            same_bits(gi, wi, f"min_argmin_1d index (stream {k})")
+            same_bits(gv, wv, f"min_argmin_1d value (stream {k})")
+    log(f"phase e: min_argmin_1d: {len(cases) + 2} cases and 2 x 50 calls on two "
+        f"streams at once bit-identical to the plain version")
+
+    # one kernel launch a call, nothing else (the workspace exists already)
+    calls = 20
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            min_argmin_1d(cand)
+        torch.cuda.synchronize()
+    launched = sum(1 for e in prof.events()
+                   if e.device_type != DeviceType.CUDA and e.name == "cudaLaunchKernel")
+    on_device = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and "argmin_1d" in e.name)
+    log(f"phase e: traced {calls} min_argmin_1d calls: {launched} cudaLaunchKernel, "
+        f"{on_device} argmin_1d kernels on the device")
+    check(launched == calls, f"min_argmin_1d: {launched} launches traced in {calls} calls")
+
+    lmg_ms = cuda_ms(lambda: min_argmin_1d(cand))
+    key_ms = cuda_ms(lambda: min_argmin_1d(key))
     results.append({
         "name": "min_argmin_1d", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_kernels.cu",
         "replaces": "src/repro/kernels/segment_ops.py:62",
         "max_abs_err": err_1d,
-        "ms": cuda_ms(lambda: min_argmin_1d(key)),
-        "call_ms": host_call_ms(lambda: min_argmin_1d(key)),
-        "plain_ms": cuda_ms(lambda: ref.min_argmin_1d_ref(key)),
-        "bound_ms": bound_ms(nvp * 4 + 8), "bound_by": "bytes",
-        "library_ms": cuda_ms(lambda: torch.min(key, 0)),
-        "shapes": f"key ({nvp},); checked also at ({LMG_CANDIDATES},) "
-                  f"[{cuda_ms(lambda: min_argmin_1d(cand)):.6f} ms, bound "
-                  f"{bound_ms(LMG_CANDIDATES * 4 + 8):.6f} ms, torch.min "
-                  f"{cuda_ms(lambda: torch.min(cand, 0)):.6f} ms]",
+        "ms": lmg_ms,
+        "call_ms": host_call_ms(lambda: min_argmin_1d(cand)),
+        "plain_ms": cuda_ms(lambda: ref.min_argmin_1d_ref(cand)),
+        "bound_ms": bound_ms(LMG_CANDIDATES * 4 + 8), "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.min(cand, 0)),
+        "shapes": f"LMG candidates ({LMG_CANDIDATES},); the Prim/MP key ({nvp},): "
+                  f"[{key_ms:.6f} ms, bound {bound_ms(nvp * 4 + 8):.9f} ms, torch.min "
+                  f"{cuda_ms(lambda: torch.min(key, 0)):.6f} ms]",
     })
 
-    del cand, key
+    del cand, key, cases, inputs, outs, plus3, tail_min, head_min, nan_v, zeros, neg_zeros
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for r in results:
+        r["launch_floor_ms"] = floor_ms
         log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']} ms {r['ms']:.6f} "
             f"plain_ms {r['plain_ms']:.6f} bound_ms {r['bound_ms']:.9f} "
-            f"library_ms {r['library_ms']} call_ms {r['call_ms']:.6f}"
-            + (f" {r['shapes']}" if "shapes" in r else ""))
+            f"library_ms {r['library_ms']} call_ms {r['call_ms']:.6f} "
+            f"launch_floor_ms {floor_ms:.6f}" + (f" {r['shapes']}" if "shapes" in r else ""))
     return results + loop_checks(dev)
 
 
@@ -1947,8 +2063,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_floor_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in results]}))
     if only != PHASES:
         print(f"chip_smoke: partial run of phases {only}; no result")
         return 0

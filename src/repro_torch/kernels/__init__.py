@@ -64,13 +64,15 @@ _ENTRIES = {
     "segment_kernels": ("segment_error_string", {
         "segment_min_rows": [_i, _vp, _vp, _ll, _ll, _vp],
         "segment_argmin_rows": [_i, _vp, _vp, _ll, _ll, _vp],
-        "segment_min_argmin_1d": [_i, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp],
+        # x, out_val, out_idx, workspace; n, workspace bytes
+        "segment_min_argmin_1d": [_i] + [_vp] * 4 + [_ll] * 2 + [_vp],
         # pd, pw, best, bp, in_tree; nvp, width, steps; chunk
         "segment_prim_loop": [_i] + [_vp] * 5 + [_ll] * 3 + [_i, _vp],
         # pd, pdelta, pphi, bound, l, d, p, in_tree, mark; nvp, width, steps;
         # chunk
         "segment_mp_loop": [_i] + [_vp] * 9 + [_ll] * 3 + [_i, _vp],
         "segment_loop_floor": [_i, _vp, _vp, _ll, _vp],
+        "segment_launch_floor": [_i, _vp],
     }),
     "block_kernels": ("block_error_string", {
         "block_xor_delta": [_i, _vp, _vp, _vp, _ll, _vp],

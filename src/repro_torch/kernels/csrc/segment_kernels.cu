@@ -24,6 +24,9 @@
 // Semantics, shared with the plain versions in ../ref.py and with XLA's
 // min/argmin: NaN is the minimum and propagates; ties go to the first
 // (smallest) index; an all-+inf input gives (+inf, 0); indices are int32.
+// The min orders -0.0 below +0.0 (a row holding both zeros gives -0.0,
+// whatever their order), the argmin holds them equal; min_argmin_1d's value
+// is x[i], the element at the first argmin, as the JAX package's XLA form.
 //
 // Bound.  The reductions only read f32 data once, so device memory bounds
 // them (3.35 TB/s on an H100 SXM).  At the main path's shapes:
@@ -35,12 +38,31 @@
 // steps x (a block barrier + a dependent L2 load), which
 // segment_loop_floor measures.
 //
-// Design.  Rows: one warp per row (8 rows per 256-thread block); lanes stride
-// the row, so a warp reads 128 contiguous bytes per step, and a shuffle
-// reduction combines the lanes.  1d: a fixed grid of at most 256 blocks
-// reduces grid-strided slices to one (value, index) each, and a second
-// single-block launch reduces those; both launch from one C call, so the
-// caller gets device scalars and no host synchronisation.
+// Design.  The reductions compare 32-bit integer keys, not floats (min_key:
+// NaN and the sign of zero folded into one integer order).
+// Rows: one template, rows_kernel<MinOp> / rows_kernel<ArgminOp> (the TPU's
+// one _row_call with its _min_kernel and _argmin_kernel bodies).  A row gets
+// L = clamp(pow2(width / 4), 1, 32) lanes, so a warp reduces 32 / L rows
+// side by side, and each thread loads one 16-byte vector (ld.global.cs: read
+// once) of each of Op::kUnroll rows before it reduces any (4 for the min, 2
+// for the argmin, whose compare costs more: the fastest on an H100); then a
+// __shfl_xor_sync butterfly over the L lanes.  Widths that are not a
+// multiple of 4 and views that are not 16-byte aligned take the same kernel
+// with 4-byte loads.  The grid is the card's resident blocks (SMs x blocks
+// an SM holds, read once) at most, and strides over the rows.
+// 1d: one launch a call.  Each block reduces its grid-strided share (16-byte
+// loads in chunks of kUnroll1d in flight; the 0-3 elements before the first
+// 16-byte boundary and the tail after the last whole vector as scalars),
+// writes its (key, index, value) to a workspace, and takes a ticket (one
+// acquire-release atomInc); the last block to finish reduces the parts,
+// writes the result, and its atomInc wraps the ticket back to 0 for the
+// next call.  The grid puts every load in flight at once where the resident
+// blocks allow, but spreads over the SMs first (a vector a thread).  The
+// wrapper keeps one workspace per (device, stream), zeroed once, so a call
+// neither allocates scratch nor sets memory, two streams never share a
+// ticket, and one stream's calls run in order.  At 2**20 one launch's floor
+// (an empty kernel, ~2 us) is above the bytes bound; the rest is the
+// latency chain of load, block reduction, ticket and the last block.
 // Loops: one persistent block of 1,024 threads runs all the steps, so no
 // step waits for the host and no grid barrier is needed (a loop step picks
 // one vertex: there is nothing for a second block to do).  The selection
@@ -61,25 +83,47 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / kWarp;
+constexpr int kThreads = 256;     // the row reduction's blocks
 constexpr int kWarps = kThreads / kWarp;
-constexpr long long kMaxParts = 256;  // first-stage blocks of the 1d reduction
+constexpr int kThreads1d = 256;   // the 1d reduction's blocks
+constexpr int kWarps1d = kThreads1d / kWarp;
+constexpr int kUnroll1d = 4;      // 16-byte loads in flight a thread, 1d
+constexpr int kMaxDevices = 64;
+constexpr long long kPartsOffset = 16;  // the 1d workspace: ticket, then parts
 constexpr float kEps = 1e-15f;        // repro_torch.kernels.ref.EPS
 constexpr int kLoopThreads = 1024;    // the loops' one block
 constexpr int kLoopWarps = kLoopThreads / kWarp;
 constexpr int kMaxChunks = 2048;      // chunk minima held in shared memory
 
-// NaN-propagating minimum (XLA's min): NaN wins, then the smaller value.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (isnan(a) || a < b) ? a : b;
+// ------------------------------------------------------------ order keys
+// min_key orders as XLA's min: every NaN one key (INT32_MIN) below -inf,
+// then the floats in order, -0.0 (key -1) below +0.0 (key 0).  Flipping the
+// magnitude bits of a negative float makes the integer order the float
+// order; the map is its own inverse (key_value).
+__device__ __forceinline__ int32_t min_key(float x) {
+  const int32_t b = __float_as_int(x);
+  return isnan(x) ? INT32_MIN : b ^ ((b >> 31) & 0x7fffffff);
+}
+
+// The argmin's key: min_key with -0.0 and +0.0 one key, so the first wins.
+__device__ __forceinline__ int32_t arg_key(float x) {
+  const int32_t k = min_key(x);
+  return k == -1 ? 0 : k;
+}
+
+__device__ __forceinline__ float key_value(int32_t k) {
+  return k == INT32_MIN ? __int_as_float(0x7fc00000)  // NaN
+                        : __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
 }
 
 // True when (a, ia) precedes (b, ib): NaN first, then the smaller value;
-// equal values (or two NaNs) go to the smaller index.
+// equal values (or two NaNs) go to the smaller index.  The loops' order.
 __device__ __forceinline__ bool precedes(float a, int32_t ia, float b,
                                          int32_t ib) {
   const bool an = isnan(a), bn = isnan(b);
@@ -87,116 +131,312 @@ __device__ __forceinline__ bool precedes(float a, int32_t ia, float b,
   return a < b || (a == b && ia < ib);
 }
 
-__device__ __forceinline__ void warp_min(float& v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    v = nan_min(__shfl_down_sync(0xffffffffu, v, off), v);
+// ------------------------------------------------------- row reduction
+// The template's two bodies.  take() sees a thread's columns in increasing
+// order, so a strict compare keeps the first of a tie; merge_lanes() folds
+// in lane (lane ^ off) of the row's lanes.
+struct MinOp {
+  using Out = float;
+  static constexpr int kUnroll = 4;  // rows a thread loads before it reduces
+  struct Acc {
+    int32_t key;
+  };
+  static __device__ __forceinline__ Acc identity() { return {INT32_MAX}; }
+  static __device__ __forceinline__ void take(Acc& a, float x, int32_t) {
+    a.key = min(a.key, min_key(x));
+  }
+  static __device__ __forceinline__ void merge_lanes(Acc& a, int off) {
+    a.key = min(a.key, __shfl_xor_sync(0xffffffffu, a.key, off));
+  }
+  static __device__ __forceinline__ Out result(const Acc& a) {
+    return key_value(a.key);
+  }
+};
+
+struct ArgminOp {
+  using Out = int32_t;
+  static constexpr int kUnroll = 2;  // its compare costs more: fewer rows
+  struct Acc {
+    int32_t key, idx;
+  };
+  static __device__ __forceinline__ Acc identity() {
+    return {INT32_MAX, INT32_MAX};
+  }
+  static __device__ __forceinline__ void take(Acc& a, float x, int32_t col) {
+    const int32_t k = arg_key(x);
+    if (k < a.key) {
+      a.key = k;
+      a.idx = col;
+    }
+  }
+  static __device__ __forceinline__ void merge_lanes(Acc& a, int off) {
+    const int32_t k = __shfl_xor_sync(0xffffffffu, a.key, off);
+    const int32_t i = __shfl_xor_sync(0xffffffffu, a.idx, off);
+    if (k < a.key || (k == a.key && i < a.idx)) {
+      a.key = k;
+      a.idx = i;
+    }
+  }
+  static __device__ __forceinline__ Out result(const Acc& a) { return a.idx; }
+};
+
+// One 16-byte or one 4-byte streaming load (read once: evict first).
+__device__ __forceinline__ void load_cs(const float* p, float (&v)[4]) {
+  const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
 }
 
-__device__ __forceinline__ void warp_argmin(float& v, int32_t& i) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int32_t oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (precedes(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
+__device__ __forceinline__ void load_cs(const float* p, float (&v)[1]) {
+  v[0] = __ldcs(p);
+}
+
+// A warp takes Op::kUnroll groups of 32 / L rows at a time; lane c of a row's
+// L lanes reads its vectors c, c + L, ... of V floats.  Every lane reaches
+// the butterfly (no early exit), so full-mask shuffles are safe.
+template <class Op, int V>
+__device__ __forceinline__ void reduce_rows(const float* __restrict__ x,
+                                            typename Op::Out* __restrict__ out,
+                                            long long rows, long long width,
+                                            int lanes_log2) {
+  const int lane = threadIdx.x % kWarp;
+  const int lanes = 1 << lanes_log2;
+  const int sub = lane >> lanes_log2, c = lane & (lanes - 1);
+  const long long group = kWarp >> lanes_log2;  // rows side by side a warp
+  const long long step = group * Op::kUnroll;    // rows a warp takes at a time
+  const long long warps = static_cast<long long>(gridDim.x) * kWarps;
+  const long long nv = width / V;               // vectors a row
+  for (long long r0 = (static_cast<long long>(blockIdx.x) * kWarps +
+                       threadIdx.x / kWarp) * step;
+       r0 < rows; r0 += warps * step) {
+    typename Op::Acc acc[Op::kUnroll];
+#pragma unroll
+    for (int u = 0; u < Op::kUnroll; ++u) acc[u] = Op::identity();
+    for (long long k = c; k < nv; k += lanes) {
+      float v[Op::kUnroll][V];
+#pragma unroll
+      for (int u = 0; u < Op::kUnroll; ++u) {
+        const long long r = r0 + u * group + sub;
+        if (r < rows) {
+          load_cs(x + r * width + k * V, v[u]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) v[u][j] = INFINITY;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < Op::kUnroll; ++u)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          Op::take(acc[u], v[u][j], static_cast<int32_t>(k * V + j));
+    }
+#pragma unroll
+    for (int u = 0; u < Op::kUnroll; ++u)
+      for (int off = lanes >> 1; off > 0; off >>= 1) Op::merge_lanes(acc[u], off);
+#pragma unroll
+    for (int u = 0; u < Op::kUnroll; ++u) {
+      const long long r = r0 + u * group + sub;
+      if (c == 0 && r < rows) out[r] = Op::result(acc[u]);
     }
   }
 }
 
-// Block-wide (value, index) reduction; thread 0 holds the result.
-__device__ __forceinline__ void block_argmin(float& v, int32_t& i) {
-  __shared__ float sv[kWarps];
-  __shared__ int32_t si[kWarps];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  warp_argmin(v, i);
-  if (lane == 0) {
-    sv[warp] = v;
-    si[warp] = i;
+// vec: width % 4 == 0 and x 16-byte aligned (every row then is).
+template <class Op>
+__global__ void __launch_bounds__(kThreads)
+rows_kernel(const float* __restrict__ x, typename Op::Out* __restrict__ out,
+            long long rows, long long width, int lanes_log2, int vec) {
+  if (vec)
+    reduce_rows<Op, 4>(x, out, rows, width, lanes_log2);
+  else
+    reduce_rows<Op, 1>(x, out, rows, width, lanes_log2);
+}
+
+// ------------------------------------------------------ 1d reduction
+// The running (key, first index) and the element itself: the result's value
+// is x[i], with its own sign of zero and NaN bits.
+struct Best {
+  int32_t key, idx;
+  float val;
+};
+
+__device__ __forceinline__ Best no_best() { return {INT32_MAX, INT32_MAX, 0.0f}; }
+
+// x is element i; a thread meets its elements in increasing order.
+__device__ __forceinline__ void take(Best& b, float x, int32_t i) {
+  const int32_t k = arg_key(x);
+  if (k < b.key) {
+    b.key = k;
+    b.idx = i;
+    b.val = x;
   }
+}
+
+__device__ __forceinline__ void merge(Best& b, const Best& o) {
+  if (o.key < b.key || (o.key == b.key && o.idx < b.idx)) b = o;
+}
+
+__device__ __forceinline__ void merge_lanes(Best& b, int off) {
+  Best o;
+  o.key = __shfl_xor_sync(0xffffffffu, b.key, off);
+  o.idx = __shfl_xor_sync(0xffffffffu, b.idx, off);
+  o.val = __shfl_xor_sync(0xffffffffu, b.val, off);
+  merge(b, o);
+}
+
+// The block's best, in thread 0; one barrier.  All threads call it.
+__device__ __forceinline__ Best block_best(Best b) {
+  __shared__ Best s[kWarps1d];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  for (int off = kWarp / 2; off > 0; off >>= 1) merge_lanes(b, off);
+  if (lane == 0) s[warp] = b;
   __syncthreads();
   if (warp == 0) {
-    v = lane < kWarps ? sv[lane] : INFINITY;
-    i = lane < kWarps ? si[lane] : INT32_MAX;
-    warp_argmin(v, i);
+    b = lane < kWarps1d ? s[lane] : no_best();
+    for (int off = kWarps1d / 2; off > 0; off >>= 1) merge_lanes(b, off);
   }
+  return b;
 }
 
-__global__ void min_rows_kernel(const float* __restrict__ x,
-                                float* __restrict__ out, long long rows,
-                                long long width) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
-  if (row >= rows) return;  // the whole warp leaves together
-  const int lane = threadIdx.x % kWarp;
-  const float* r = x + row * width;
-  float v = INFINITY;
-  for (long long c = lane; c < width; c += kWarp) v = nan_min(r[c], v);
-  warp_min(v);
-  if (lane == 0) out[row] = v;
-}
-
-__global__ void argmin_rows_kernel(const float* __restrict__ x,
-                                   int32_t* __restrict__ out, long long rows,
-                                   long long width) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % kWarp;
-  const float* r = x + row * width;
-  float v = INFINITY;
-  int32_t i = INT32_MAX;
-  for (long long c = lane; c < width; c += kWarp) {
-    const float xc = r[c];
-    if (precedes(xc, static_cast<int32_t>(c), v, i)) {
-      v = xc;
-      i = static_cast<int32_t>(c);
+// The best of this thread's grid-strided share of x[0, n).  The first
+// `head` elements (before x + head is 16-byte aligned) and the tail after
+// the last whole vector are scalars, one a thread; the vectors in between
+// are 16-byte loads in chunks of kUnroll1d, all of a chunk in flight (a
+// partial chunk too: its loads are predicated, not looped).
+__device__ __forceinline__ Best share_best(const float* __restrict__ x,
+                                           long long n, int head) {
+  const long long tid = static_cast<long long>(blockIdx.x) * kThreads1d + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads1d;
+  const long long nv = (n - head) / 4;   // whole vectors after the head
+  const long long tail = head + 4 * nv;  // the first element after them
+  const float4* xv = reinterpret_cast<const float4*>(x + head);
+  Best b = no_best();
+  if (tid < head) take(b, x[tid], static_cast<int32_t>(tid));
+  for (long long v = tid; v < nv; v += kUnroll1d * stride) {
+    float4 t[kUnroll1d];
+#pragma unroll
+    for (int u = 0; u < kUnroll1d; ++u)
+      if (v + u * stride < nv) t[u] = __ldcs(xv + v + u * stride);
+#pragma unroll
+    for (int u = 0; u < kUnroll1d; ++u) {
+      if (v + u * stride >= nv) continue;
+      const int32_t i = static_cast<int32_t>(head + 4 * (v + u * stride));
+      take(b, t[u].x, i);
+      take(b, t[u].y, i + 1);
+      take(b, t[u].z, i + 2);
+      take(b, t[u].w, i + 3);
     }
   }
-  warp_argmin(v, i);
-  if (lane == 0) out[row] = i;
+  if (tail + tid < n) take(b, x[tail + tid], static_cast<int32_t>(tail + tid));
+  return b;
 }
 
-__global__ void argmin_parts_kernel(const float* __restrict__ x,
-                                    float* __restrict__ part_val,
-                                    int32_t* __restrict__ part_idx,
-                                    long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  float v = INFINITY;
-  int32_t i = INT32_MAX;
-  for (long long k = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       k < n; k += stride) {
-    const float xk = x[k];
-    if (precedes(xk, static_cast<int32_t>(k), v, i)) {
-      v = xk;
-      i = static_cast<int32_t>(k);
-    }
+// True for the last of `count` takers.  One acquire-release atomic at the
+// device's scope: it releases the part this thread wrote before it, and the
+// last taker acquires every part released before; its block's other threads
+// read them after a barrier.  The last ticket wraps the counter to 0
+// (atom.inc), so the next call starts clean.
+__device__ __forceinline__ bool take_ticket(unsigned int* ticket, unsigned count) {
+  unsigned int old;
+  asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(ticket), "r"(count - 1)
+               : "memory");
+  return old == count - 1;
+}
+
+// The best of parts[0, count), written by other blocks, in thread 0.
+__device__ __forceinline__ Best parts_best(const Best* parts, unsigned count) {
+  Best p = no_best();
+  for (unsigned j = threadIdx.x; j < count; j += kThreads1d) {
+    Best o;  // read through L2, never a stale L1 line
+    o.key = __ldcg(&parts[j].key);
+    o.idx = __ldcg(&parts[j].idx);
+    o.val = __ldcg(&parts[j].val);
+    merge(p, o);
   }
-  block_argmin(v, i);
+  return block_best(p);
+}
+
+__device__ __forceinline__ void write_best(const Best& p, long long n,
+                                           float* out_val, int32_t* out_idx) {
+  *out_val = p.val;
+  // the JAX form's clamp of the padded flat index, jnp.minimum(i, n - 1)
+  *out_idx = p.idx < n - 1 ? p.idx : static_cast<int32_t>(n - 1);
+}
+
+// (min, first argmin) of x[0, n) in one launch: each block's best goes to
+// parts, and the block that takes the last ticket reduces them.
+__global__ void __launch_bounds__(kThreads1d)
+argmin_1d_kernel(const float* __restrict__ x, long long n, int head,
+                 unsigned int* ticket, Best* parts, float* __restrict__ out_val,
+                 int32_t* __restrict__ out_idx) {
+  const Best b = block_best(share_best(x, n, head));
+  __shared__ bool last;
   if (threadIdx.x == 0) {
-    part_val[blockIdx.x] = v;
-    part_idx[blockIdx.x] = i;
+    parts[blockIdx.x] = b;
+    last = take_ticket(ticket, gridDim.x);
   }
+  __syncthreads();
+  if (!last) return;
+  const Best p = parts_best(parts, gridDim.x);
+  if (threadIdx.x == 0) write_best(p, n, out_val, out_idx);
 }
 
-__global__ void argmin_final_kernel(const float* __restrict__ part_val,
-                                    const int32_t* __restrict__ part_idx,
-                                    float* __restrict__ out_val,
-                                    int32_t* __restrict__ out_idx,
-                                    long long parts, long long n) {
-  float v = INFINITY;
-  int32_t i = INT32_MAX;
-  for (long long k = threadIdx.x; k < parts; k += kThreads) {
-    if (precedes(part_val[k], part_idx[k], v, i)) {
-      v = part_val[k];
-      i = part_idx[k];
-    }
+__global__ void empty_kernel() {}
+
+// Blocks of `kernel` the card runs at once (SMs x the blocks an SM holds)
+// and its SMs, read once a device: cache[device] = blocks << 16 | SMs.
+template <class Kernel>
+cudaError_t card_blocks(int device, Kernel kernel, int threads,
+                        std::atomic<int> (&cache)[kMaxDevices], long long& blocks,
+                        long long& sms) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int have = cache[device].load();
+  if (have == 0) {
+    int n_sm = 0, per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    if (err != cudaSuccess) return err;
+    have = (n_sm * (per_sm < 1 ? 1 : per_sm)) << 16 | n_sm;
+    cache[device].store(have);
   }
-  block_argmin(v, i);
-  if (threadIdx.x == 0) {
-    *out_val = v;
-    // the JAX form's clamp of the padded flat index, jnp.minimum(i, n - 1)
-    *out_idx = i < n - 1 ? i : static_cast<int32_t>(n - 1);
+  blocks = have >> 16;
+  sms = have & 0xffff;
+  return cudaSuccess;
+}
+
+std::atomic<int> g_min_rows_blocks[kMaxDevices];
+std::atomic<int> g_argmin_rows_blocks[kMaxDevices];
+std::atomic<int> g_1d_blocks[kMaxDevices];
+
+template <class Op>
+int launch_rows(int device, const void* x, void* out, long long rows,
+                long long width, void* stream,
+                std::atomic<int> (&cache)[kMaxDevices]) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows > 0) {
+    const int vec = width % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const long long loads = vec ? width / 4 : width;  // vectors a row
+    int lanes_log2 = 0;
+    while (lanes_log2 < 5 && (1LL << lanes_log2) < loads) ++lanes_log2;
+    const long long per_block =
+        static_cast<long long>(kWarps) * (kWarp >> lanes_log2) * Op::kUnroll;
+    long long card = 0, sms = 0;
+    err = card_blocks(device, rows_kernel<Op>, kThreads, cache, card, sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    long long grid = (rows + per_block - 1) / per_block;
+    if (grid > card) grid = card;
+    rows_kernel<Op><<<static_cast<unsigned>(grid), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<typename Op::Out*>(out), rows,
+        width, lanes_log2, vec);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------ step loops
@@ -490,51 +730,49 @@ extern "C" {
 // out[r] = min of row r of the (rows, width) f32 matrix x.
 int segment_min_rows(int device, const void* x, void* out, long long rows,
                      long long width, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows > 0) {
-    const unsigned grid =
-        static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-    min_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), rows, width);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<MinOp>(device, x, out, rows, width, stream,
+                            g_min_rows_blocks);
 }
 
 // out[r] = int32 index of the first minimum of row r.
 int segment_argmin_rows(int device, const void* x, void* out, long long rows,
                         long long width, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows > 0) {
-    const unsigned grid =
-        static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-    argmin_rows_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<int32_t*>(out), rows, width);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<ArgminOp>(device, x, out, rows, width, stream,
+                               g_argmin_rows_blocks);
 }
 
-// (*out_val, *out_idx) = (min, first argmin) of the n-element f32 vector x;
-// part_val / part_idx are scratch of `parts` entries, 1 <= parts <= 256.
-int segment_min_argmin_1d(int device, const void* x, void* part_val,
-                          void* part_idx, void* out_val, void* out_idx,
-                          long long n, long long parts, void* stream) {
+// (*out_val, *out_idx) = (x[i], i) for i the first argmin of the n-element
+// f32 vector x, in one launch.  workspace: `workspace_bytes` bytes, zeroed
+// before its first use and kept for this stream's calls alone.
+int segment_min_argmin_1d(int device, const void* x, void* out_val,
+                          void* out_idx, void* workspace, long long n,
+                          long long workspace_bytes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0 || parts < 1 || parts > kMaxParts)
+  const long long max_parts =
+      (workspace_bytes - kPartsOffset) / static_cast<long long>(sizeof(Best));
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
+  if (n <= 0 || n > INT32_MAX || max_parts < 1 || addr % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  argmin_parts_kernel<<<static_cast<unsigned>(parts), kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<float*>(part_val),
-      static_cast<int32_t*>(part_idx), n);
-  err = cudaGetLastError();
+  long long head = static_cast<long long>((16 - addr % 16) % 16) / 4;
+  if (head > n) head = n;
+  const long long nv = (n - head) / 4;
+  long long grid = 0, sms = 0;
+  err = card_blocks(device, argmin_1d_kernel, kThreads1d, g_1d_blocks, grid, sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  argmin_final_kernel<<<1, kThreads, 0, s>>>(
-      static_cast<const float*>(part_val),
-      static_cast<const int32_t*>(part_idx), static_cast<float*>(out_val),
-      static_cast<int32_t*>(out_idx), parts, n);
+  // Every load in flight at once where the resident blocks allow (whole
+  // chunks), but spread over the SMs first: a vector a thread before a
+  // chunk a thread.
+  const long long whole = (nv + kThreads1d * kUnroll1d - 1) / (kThreads1d * kUnroll1d);
+  const long long spread = (nv + kThreads1d - 1) / kThreads1d;
+  const long long target = std::max(whole, sms);
+  grid = std::max(1LL, std::min({grid, target, spread, max_parts}));
+  char* ws = static_cast<char*>(workspace);
+  argmin_1d_kernel<<<static_cast<unsigned>(grid), kThreads1d, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), n, static_cast<int>(head),
+      reinterpret_cast<unsigned int*>(ws), reinterpret_cast<Best*>(ws + kPartsOffset),
+      static_cast<float*>(out_val), static_cast<int32_t*>(out_idx));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,6 +820,14 @@ int segment_loop_floor(int device, const void* next, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   loop_floor_kernel<<<1, kLoopThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(next), static_cast<int32_t*>(out), steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One empty kernel: the floor under any launch of this library.
+int segment_launch_floor(int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  empty_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

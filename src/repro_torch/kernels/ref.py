@@ -114,12 +114,17 @@ EPS = 1e-15
 
 # NaN is the minimum and propagates, ties go to the first index, indices are
 # int32: the semantics of XLA's min / argmin, which the JAX package's
-# segment kernels and solvers rely on.
+# segment kernels and solvers rely on.  XLA's min orders -0.0 below +0.0;
+# its argmin, like ``min_argmin_1d_ref``'s, holds the two zeros equal.
 
 
 def segment_min_rows_ref(x: torch.Tensor) -> torch.Tensor:
-    """(rows,) minimum of each row of a (rows, width) f32 matrix."""
-    return torch.amin(x, dim=1)
+    """(rows,) minimum of each row of a (rows, width) f32 matrix, as XLA's
+    min: -0.0 where the minimum is zero and the row holds a -0.0, whatever
+    the order (``torch.amin`` returns whichever zero it meets)."""
+    m = torch.amin(x, dim=1)
+    neg_zero = ((x == 0) & torch.signbit(x)).any(dim=1)
+    return torch.where((m == 0) & neg_zero, torch.full_like(m, -0.0), m)
 
 
 def segment_argmin_rows_ref(x: torch.Tensor) -> torch.Tensor:

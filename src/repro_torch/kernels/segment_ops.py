@@ -19,14 +19,20 @@ package's ``src/repro/kernels/segment_ops.py`` as reached from its
 loops are the ``fori_loop`` s of its ``core/solvers/jax_backend.py``
 ``_prim_jit`` and ``_mp_jit``, whose selection is that ``min_argmin_1d``.
 The CUDA kernels are in ``csrc/segment_kernels.cu``, where their bound and
-design are noted.  NaN is the minimum and propagates, ties go to the first
-index, and an all-``+inf`` input gives ``(+inf, 0)``, as with XLA's
-reductions.
+design are noted: the row reductions are one template with a min and an
+argmin body, and ``min_argmin_1d`` is one launch a call.  NaN is the minimum
+and propagates, ties go to the first index, and an all-``+inf`` input gives
+``(+inf, 0)``, as with XLA's reductions; the min orders ``-0.0`` below
+``+0.0`` as XLA's does, the argmin holds them equal, and ``min_argmin_1d``
+returns ``x[i]`` for the first argmin ``i``, as the JAX package's XLA form.
+Rows and vectors may be any contiguous view: the kernels take 16-byte loads
+where the width and the address allow, 4-byte loads elsewhere.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import threading
+from typing import Dict, Tuple
 
 import torch
 
@@ -45,8 +51,12 @@ LANE = 128  # the JAX form's row width for 1d reductions (TPU lane width)
 # padded length r * LANE + col must not wrap); refused before any launch
 MAX_INT32_ELEMS = (1 << 31) - 1 - LANE
 
-_MAX_PARTS = 256   # first-stage blocks of the 1d reduction (as in the .cu)
-_PER_PART = 2048   # elements per first-stage block, at least
+#: bytes of min_argmin_1d's workspace: a ticket, then one 12-byte part a
+#: block (the kernel caps its grid at what this holds, far above the card's
+#: resident blocks)
+WORKSPACE_BYTES = 1 << 16
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+_workspace_lock = threading.Lock()
 
 LOOP_CHUNK = 256          # keys per chunk of the loops' selection, at least
 MAX_LOOP_CHUNKS = 2048    # chunk minima the loop kernels hold (kMaxChunks)
@@ -116,15 +126,28 @@ def min_argmin_1d(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if is_cpu(x):
         return min_argmin_1d_ref(x)
     _check_contiguous(x=x)
-    parts = min(_MAX_PARTS, -(-n // _PER_PART))
-    part_val = torch.empty((parts,), dtype=torch.float32, device=x.device)
-    part_idx = torch.empty((parts,), dtype=torch.int32, device=x.device)
+    ws = _workspace(x.device)
     val = torch.empty((), dtype=torch.float32, device=x.device)
     idx = torch.empty((), dtype=torch.int32, device=x.device)
-    launch("segment_min_argmin_1d", x.device, x.data_ptr(), part_val.data_ptr(),
-           part_idx.data_ptr(), val.data_ptr(), idx.data_ptr(), n, parts)
+    launch("segment_min_argmin_1d", x.device, x.data_ptr(), val.data_ptr(),
+           idx.data_ptr(), ws.data_ptr(), n, ws.numel())
     count_launch(min_argmin_1d)
     return val, idx
+
+
+def _workspace(device: torch.device) -> torch.Tensor:
+    """min_argmin_1d's workspace on ``device``'s current stream: made and
+    zeroed on that stream at its first call there, then kept.  The kernel
+    leaves its ticket at 0, so no later call sets memory; calls on one stream
+    run in order, and two streams never share a ticket."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    with _workspace_lock:
+        ws = _workspaces.get(key)
+        if ws is None:
+            ws = torch.zeros(WORKSPACE_BYTES, dtype=torch.uint8, device=device)
+            _workspaces[key] = ws
+    return ws
 
 
 def loop_chunk(nvp: int) -> int:

@@ -126,3 +126,36 @@ def test_segment_library_runs_the_solver_loops():
     assert "mp_reparent" not in src
     assert kernels.library_path(kernels.sources()["segment_kernels"]).name.startswith(
         "libsegment_kernels_")
+
+
+def _c_body(src: str, entry: str) -> str:
+    return re.search(rf"\nint {entry}\(.*?\n}}\n", src, re.S).group(0)
+
+
+def test_segment_reductions_pin_their_c_signatures():
+    """The row reductions take (x, out, rows, width); the 1d reduction takes
+    the caller's per-stream workspace and its size, and no scratch buffers;
+    the launch floor takes nothing but the device and the stream."""
+    _i, _ll, _vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    entries = kernels._ENTRIES["segment_kernels"][1]
+    assert entries["segment_min_rows"] == [_i, _vp, _vp, _ll, _ll, _vp]
+    assert entries["segment_argmin_rows"] == [_i, _vp, _vp, _ll, _ll, _vp]
+    # device; x, out_val, out_idx, workspace; n, workspace bytes; stream
+    assert entries["segment_min_argmin_1d"] == [_i, _vp, _vp, _vp, _vp, _ll, _ll, _vp]
+    assert entries["segment_launch_floor"] == [_i, _vp]
+
+
+def test_segment_reductions_are_one_template_and_one_1d_launch():
+    """The min and the argmin over rows are one kernel template with two
+    bodies; min_argmin_1d is one launch a call (the two-stage parts and
+    final kernels are gone); the library keeps -fmad=false."""
+    src = (kernels.CSRC / "segment_kernels.cu").read_text()
+    assert "-fmad=false" in kernels.compile_flags("segment_kernels")
+    assert "argmin_final_kernel" not in src and "argmin_parts_kernel" not in src
+    assert "min_rows_kernel" not in src and "argmin_rows_kernel" not in src
+    assert src.count("rows_kernel<Op><<<") == 1
+    assert "launch_rows<MinOp>" in _c_body(src, "segment_min_rows")
+    assert "launch_rows<ArgminOp>" in _c_body(src, "segment_argmin_rows")
+    one_d = _c_body(src, "segment_min_argmin_1d")
+    assert one_d.count("<<<") == 1 and "argmin_1d_kernel<<<" in one_d
+    assert "cudaMalloc" not in src and "cudaMemset" not in src

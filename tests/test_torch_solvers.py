@@ -266,6 +266,7 @@ def _segment_cases():
     x[5, 6] = np.nan
     x[6, [1, 11]] = np.nan                 # two NaNs: the first wins
     x[7, :] = 2.5                          # a row of ties
+    z = np.float32(0.0)
     return {
         "mixed": x,
         "width_33": _rows(1, (64, 33)),
@@ -273,6 +274,16 @@ def _segment_cases():
         "one_row": _rows(3, (1, 40)),
         "all_inf": np.full((5, 8), np.inf, np.float32),
         "wide": _rows(4, (3, 300)),
+        # XLA's min returns -0.0 for a row that holds both zeros, in any order;
+        # the argmin keeps them equal and takes the first
+        "signed_zero": np.array([[z, -z, 1], [-z, z, 1], [z, z, -z]], np.float32),
+        "neg_inf": np.array([[1, -np.inf, 3, -np.inf], [np.inf] * 4, [-np.inf, 0, 2, 2]],
+                            np.float32),
+        # the solvers' widths (multiples of 8)
+        "width_8": _rows(6, (50, 8)),
+        "width_24": _rows(7, (50, 24)),
+        "width_32": _rows(8, (50, 32)),
+        "width_40": _rows(9, (50, 40)),
     }
 
 
@@ -290,8 +301,9 @@ class TestSegmentOpsMatchJax:
         tmin, targ = tseg.segment_min_rows(tx), tseg.segment_argmin_rows(tx)
         assert targ.dtype == torch.int32 and jarg.dtype == np.int32
         np.testing.assert_array_equal(targ.numpy(), jarg)
-        np.testing.assert_array_equal(tmin.numpy(), jmin)  # NaN == NaN here
-        assert tmin.dtype == torch.float32
+        assert tmin.dtype == torch.float32 and jmin.dtype == np.float32
+        # by bits: -0.0 == +0.0 as floats (the NaNs here are all np.nan's bits)
+        np.testing.assert_array_equal(tmin.numpy().view(np.int32), jmin.view(np.int32))
 
     @pytest.mark.parametrize("name", sorted(SEGMENT_CASES))
     @pytest.mark.parametrize("use_pallas", [True, False])
@@ -301,7 +313,16 @@ class TestSegmentOpsMatchJax:
         tv, ti = tseg.min_argmin_1d(torch.from_numpy(x.copy()))
         assert ti.dtype == torch.int32 and tv.dtype == torch.float32
         assert int(ti) == int(ji)
-        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        # The value is held by bits against the XLA form's, x[i], whichever
+        # form is under test: the Pallas form returns the XLA min of the
+        # winning 128-lane row, which can be -0.0 where x[i] is +0.0 (it
+        # differs in the sign of a zero only, and no solver reads it).
+        xv, xi = jseg.min_argmin_1d(jnp.asarray(x), use_pallas=False)
+        assert int(xi) == int(ji)
+        np.testing.assert_array_equal(tv.numpy().view(np.int32),
+                                      np.asarray(xv).view(np.int32))
+        if not np.isnan(np.asarray(jv)):
+            assert float(jv) == float(xv)  # equal as floats in both forms
 
     def test_mp_slack_is_one_value(self):
         # the re-parenting slack of the CUDA kernel, of its plain version and

@@ -3,7 +3,7 @@
 Not a pytest module (it needs a CUDA card and ``nvcc``): run it by hand on
 the GPU machine from the root of a checkout,
 
-    PYTHONPATH=src python tests/torch_kernel_ablation_check.py [--only flash,xor,loops]
+    PYTHONPATH=src python tests/torch_kernel_ablation_check.py [--only flash,xor,loops,segment]
 
 It builds variants of the committed sources by text substitution (into
 ``build/ablation/``; a substitution whose text is no longer in the source
@@ -31,6 +31,25 @@ committed kernel and the library call in one process:
   cycles of each stage of a step (the selection, the relaxation, the chain
   walk with its second pass, the recomputation of the dirty chunks) in the
   block's first thread, and the steps that walked a chain.
+
+* ``segment_kernels.cu``'s reductions at the main path's shapes (the
+  131,072 x 32 in-edge matrix of ``chip_smoke.padded_rows_like``, the LMG
+  candidate vector of 2**20 and the 131,072-key vector of ``chip_smoke``'s
+  phase e): the earlier design (``tests/torch_segment_earlier.cu``: a warp a
+  row, two launches for 1d) beside the committed one and its variants:
+  4-byte loads for the rows; 1, 2, 4 and 8 rows (loads) in flight a thread
+  for both row bodies (committed: 4 for the min, 2 for the argmin); the row
+  grid capped at 1, 2 and 4 blocks an SM (committed: the blocks an SM
+  holds); for 1d (committed: blocks of 256, chunks of 4 loads, the grid of
+  whole chunks but at least one block an SM while every thread has a
+  vector), chunks of 2 and 8, blocks of 512, one block an SM, the grid of
+  whole chunks alone, the ticket as two fences and a relaxed atomic in
+  place of one acquire-release atomic, the last block's finish in one
+  warp, and clusters of 8 blocks that gather their parts through
+  distributed shared memory before one ticket a cluster.
+  Each is held against the plain version (the earlier design by value: its
+  min may differ in the sign of a zero); beside ``torch.amin``,
+  ``torch.argmin``, ``torch.min`` and an empty kernel (the launch floor).
 
 The last line is one JSON object with every time, and the card's name and
 power limit.
@@ -305,12 +324,246 @@ def loop_ablation(lib, cycles_lib, dev, times: dict) -> None:
         times[f"{name} loop cycles"] = c
 
 
+SEG_EARLIER = Path(__file__).resolve().with_name("torch_segment_earlier.cu")
+# clusters of 8 blocks for 1d: each cluster's rank 0 gathers its blocks' bests
+# from their shared memory, and one ticket a cluster picks the last
+SEG_CLUSTER_KERNEL = """constexpr int kCluster = 8;
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads1d)
+argmin_1d_cluster_kernel(const float* __restrict__ x, long long n, int head,
+                         unsigned int* ticket, Best* parts,
+                         float* __restrict__ out_val, int32_t* __restrict__ out_idx) {
+  namespace cg = cooperative_groups;
+  __shared__ Best mine;
+  __shared__ bool last;
+  const Best b = block_best(share_best(x, n, head));
+  if (threadIdx.x == 0) mine = b;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const unsigned rank = cluster.block_rank();
+  if (rank == 0 && threadIdx.x < kWarp) {
+    Best o = threadIdx.x < kCluster ? *cluster.map_shared_rank(&mine, threadIdx.x)
+                                    : no_best();
+    for (int off = kCluster / 2; off > 0; off >>= 1) merge_lanes(o, off);
+    if (threadIdx.x == 0) {
+      const unsigned c = blockIdx.x / kCluster, nc = gridDim.x / kCluster;
+      parts[c] = o;
+      __threadfence();
+      last = atomicInc(ticket, nc - 1) == nc - 1;
+    }
+  }
+  cluster.sync();  // every block's `mine` stays until rank 0 has read it
+  if (rank != 0 || !last) return;
+  const Best p = parts_best(parts, gridDim.x / kCluster);
+  if (threadIdx.x == 0) write_best(p, n, out_val, out_idx);
+}
+
+"""
+SEG_CLUSTER_ENTRY = """int segment_min_argmin_1d_cluster(int device, const void* x, void* out_val,
+                                  void* out_idx, void* workspace, long long n,
+                                  long long workspace_bytes, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long max_parts =
+      (workspace_bytes - kPartsOffset) / static_cast<long long>(sizeof(Best));
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
+  if (n <= 0 || n > INT32_MAX || max_parts < 1 || addr % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long head = static_cast<long long>((16 - addr % 16) % 16) / 4;
+  if (head > n) head = n;
+  const long long nv = (n - head) / 4;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long whole = (nv + kThreads1d * kUnroll1d - 1) / (kThreads1d * kUnroll1d);
+  const long long spread = (nv + kThreads1d - 1) / kThreads1d;
+  long long grid = whole > sms ? whole : sms;  // the committed kernel's rule
+  if (grid > spread) grid = spread;
+  if (grid > 8LL * sms) grid = 8LL * sms;
+  grid = (grid + kCluster - 1) / kCluster * kCluster;
+  if (grid < kCluster) grid = kCluster;
+  if (grid / kCluster > max_parts) return static_cast<int>(cudaErrorInvalidValue);
+  char* ws = static_cast<char*>(workspace);
+  argmin_1d_cluster_kernel<<<static_cast<unsigned>(grid), kThreads1d, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), n, static_cast<int>(head),
+      reinterpret_cast<unsigned int*>(ws), reinterpret_cast<Best*>(ws + kPartsOffset),
+      static_cast<float*>(out_val), static_cast<int32_t*>(out_idx));
+  return static_cast<int>(cudaGetLastError());
+}
+
+"""
+SEG_CLUSTER = [
+    ("#include <atomic>\n", "#include <atomic>\n\n#include <cooperative_groups.h>\n"),
+    ("__global__ void empty_kernel() {}\n", SEG_CLUSTER_KERNEL + "__global__ void empty_kernel() {}\n"),
+    ("// One empty kernel: the floor under any launch of this library.\n",
+     SEG_CLUSTER_ENTRY + "// One empty kernel: the floor under any launch of this library.\n"),
+]
+
+
+def seg_rows_unroll(u: int) -> list:
+    """Both row bodies with ``u`` rows (loads) in flight a thread."""
+    return [("  static constexpr int kUnroll = 4;  // rows a thread loads before it reduces",
+             f"  static constexpr int kUnroll = {u};"),
+            ("  static constexpr int kUnroll = 2;  // its compare costs more: fewer rows",
+             f"  static constexpr int kUnroll = {u};")]
+
+
+def seg_1d(threads: int = 256, u: int = 4) -> list:
+    """The 1d reduction with blocks of ``threads`` and chunks of ``u`` loads."""
+    return [("constexpr int kThreads1d = 256;", f"constexpr int kThreads1d = {threads};"),
+            ("constexpr int kUnroll1d = 4;", f"constexpr int kUnroll1d = {u};")]
+
+
+SEG_1D_CAP = "  const long long target = std::max(whole, sms);\n"
+
+
+def seg_rows_grid(per_sm: int) -> list:
+    return [("    if (grid > card) grid = card;\n",
+             f"    if (grid > {per_sm} * sms) grid = {per_sm} * sms;\n")]
+
+
+# the ticket as a fence, a relaxed atomicInc, and a fence in the last block
+SEG_FENCE_TICKET = [
+    ("  unsigned int old;\n  asm volatile(\"atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\"\n"
+     "               : \"=r\"(old)\n               : \"l\"(ticket), \"r\"(count - 1)\n"
+     "               : \"memory\");\n  return old == count - 1;\n",
+     "  __threadfence();\n  return atomicInc(ticket, count - 1) == count - 1;\n"),
+    ("Best parts_best(const Best* parts, unsigned count) {\n",
+     "Best parts_best(const Best* parts, unsigned count) {\n  __threadfence();\n"),
+]
+# the last block's finish in its first warp alone: no barrier
+SEG_WARP_FINISH = [
+    ("  Best p = no_best();\n  for (unsigned j = threadIdx.x; j < count; j += kThreads1d) {\n",
+     "  Best p = no_best();\n  if (threadIdx.x >= kWarp) return p;\n"
+     "  for (unsigned j = threadIdx.x; j < count; j += kWarp) {\n"),
+    ("    merge(p, o);\n  }\n  return block_best(p);\n",
+     "    merge(p, o);\n  }\n"
+     "  for (int off = kWarp / 2; off > 0; off >>= 1) merge_lanes(p, off);\n  return p;\n"),
+]
+
+# variant -> (substitutions, what it is timed on)
+SEG_VARIANTS = {
+    "committed": ([], ("rows", "1d")),
+    "4-byte loads": ([("    const int vec = width % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;\n",
+                       "    const int vec = 0;\n")], ("rows",)),
+    **{f"rows, {u} a thread": (seg_rows_unroll(u), ("rows",)) for u in (1, 2, 4, 8)},
+    **{f"rows, grid {k} a SM": (seg_rows_grid(k), ("rows",)) for k in (1, 2, 4)},
+    "1d, chunks of 2": (seg_1d(u=2), ("1d",)),
+    "1d, chunks of 8": (seg_1d(u=8), ("1d",)),
+    "1d, 512 threads": (seg_1d(threads=512), ("1d",)),
+    "1d, one block a SM": ([(SEG_1D_CAP, "  const long long target = sms;\n")], ("1d",)),
+    "1d, whole chunks": ([(SEG_1D_CAP, "  const long long target = whole;\n")], ("1d",)),
+    "1d, fence ticket": (SEG_FENCE_TICKET, ("1d",)),
+    "1d, one-warp finish": (SEG_WARP_FINISH, ("1d",)),
+    "1d, clusters of 8": (SEG_CLUSTER, ("1d",)),
+}
+
+
+def segment_ablation(libs: dict, dev, times: dict) -> None:
+    """The row and 1d reductions: the earlier design, the committed one and
+    its variants, in turns, each held against the plain version."""
+    from chip_smoke import LMG_CANDIDATES, padded_rows_like
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_ops import WORKSPACE_BYTES
+
+    g = torch.Generator(device=dev).manual_seed(1505_05211 + 1)
+    rows, width = 131_072, 32
+    x = padded_rows_like(g, rows, width, dev)
+    cand = torch.ones(LMG_CANDIDATES, device=dev)
+    scored = torch.randint(0, LMG_CANDIDATES, (4096,), device=dev, generator=g)
+    cand[scored] = -torch.rand(4096, device=dev, generator=g) * 10
+    key = torch.rand(rows, device=dev, generator=g) * 1e6
+    key[torch.rand(rows, device=dev, generator=g) < 0.6] = torch.inf
+    vectors = {"1d 2**20": cand, "1d 131,072": key}
+    want = {"rows min": ref.segment_min_rows_ref(x), "rows argmin": ref.segment_argmin_rows_ref(x)}
+    want.update({k: ref.min_argmin_1d_ref(v) for k, v in vectors.items()})
+    out_f = torch.empty(rows, device=dev)
+    out_i = torch.empty(rows, dtype=torch.int32, device=dev)
+    val = torch.empty((), device=dev)
+    idx = torch.empty((), dtype=torch.int32, device=dev)
+    part_val = torch.empty(256, device=dev)
+    part_idx = torch.empty(256, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    _i, _ll, _vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    entries = kernels._ENTRIES["segment_kernels"][1]
+
+    def bind(lib, name, argtypes):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn
+
+    def ok(err):
+        assert err == 0, err
+
+    calls = {}  # (variant, measure) -> call
+    for name, (_, measures) in {"earlier design": (None, ("rows", "1d")), **SEG_VARIANTS}.items():
+        lib = libs[f"segment {name}"]
+        mn = bind(lib, "segment_min_rows", entries["segment_min_rows"])
+        am = bind(lib, "segment_argmin_rows", entries["segment_argmin_rows"])
+        if "rows" in measures:
+            calls[name, "rows min"] = lambda mn=mn: ok(mn(0, x.data_ptr(), out_f.data_ptr(),
+                                                          rows, width, stream))
+            calls[name, "rows argmin"] = lambda am=am: ok(am(0, x.data_ptr(), out_i.data_ptr(),
+                                                             rows, width, stream))
+        if "1d" not in measures:
+            continue
+        if name == "earlier design":
+            fn = bind(lib, "segment_min_argmin_1d", [_i] + [_vp] * 5 + [_ll] * 2 + [_vp])
+            for what, v in vectors.items():
+                parts = min(256, -(-v.numel() // 2048))
+                calls[name, what] = lambda fn=fn, v=v, parts=parts: ok(fn(
+                    0, v.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(), val.data_ptr(),
+                    idx.data_ptr(), v.numel(), parts, stream))
+            continue
+        entry = ("segment_min_argmin_1d_cluster" if name == "1d, clusters of 8"
+                 else "segment_min_argmin_1d")
+        fn = bind(lib, entry, entries["segment_min_argmin_1d"])
+        ws = torch.zeros(WORKSPACE_BYTES, dtype=torch.uint8, device=dev)
+        for what, v in vectors.items():
+            calls[name, what] = lambda fn=fn, v=v, ws=ws: ok(fn(
+                0, v.data_ptr(), val.data_ptr(), idx.data_ptr(), ws.data_ptr(), v.numel(),
+                ws.numel(), stream))
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for (name, what), call in calls.items():  # each must agree before it is timed
+        call()
+        torch.cuda.synchronize()
+        if what == "rows min":
+            got, ref_v = (out_f,), (want[what],)
+        elif what == "rows argmin":
+            got, ref_v = (out_i,), (want[what],)
+        else:
+            got, ref_v = (val, idx), want[what]
+        same = all(torch.equal(a, b) if name == "earlier design" else torch.equal(bits(a), bits(b))
+                   for a, b in zip(got, ref_v))
+        if not same:
+            raise SystemExit(f"segment {name}, {what}: differs from the plain version")
+    floor = bind(libs["segment committed"], "segment_launch_floor", entries["segment_launch_floor"])
+    library = {"rows min": lambda: torch.amin(x, 1), "rows argmin": lambda: torch.argmin(x, 1),
+               "1d 2**20": lambda: torch.min(cand, 0), "1d 131,072": lambda: torch.min(key, 0)}
+    for rep in range(3):
+        for (name, what), call in calls.items():
+            times.setdefault(f"{what}: {name}", []).append(cuda_ms(call))
+        for what, call in library.items():
+            times.setdefault(f"{what}: torch", []).append(cuda_ms(call))
+        times.setdefault("launch floor (an empty kernel)", []).append(
+            cuda_ms(lambda: ok(floor(0, stream))))
+        for what in ("rows min", "rows argmin", "1d 2**20", "1d 131,072"):
+            print(f"segment {what}, rep {rep}: " + "  ".join(
+                f"{k.split(': ', 1)[1]} {t[-1] * 1e3:.3f} us" for k, t in times.items()
+                if k.startswith(what + ": ")), flush=True)
+        print(f"launch floor {times['launch floor (an empty kernel)'][-1] * 1e3:.3f} us", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", default="flash,xor,loops",
-                    help="comma-separated subset of flash, xor, loops")
+    ap.add_argument("--only", default="flash,xor,loops,segment",
+                    help="comma-separated subset of flash, xor, loops, segment")
     only = set(ap.parse_args(argv).only.split(","))
     if not torch.cuda.is_available():
         print("torch_kernel_ablation_check: no CUDA device", file=sys.stderr)
@@ -331,11 +584,20 @@ def main(argv=None) -> int:
         jobs["loops"] = ("segment_kernels", variant("segment_kernels", "committed", []))
         jobs["loop cycles"] = ("segment_kernels",
                                variant("segment_kernels", "cycles", LOOP_CYCLES))
+    if "segment" in only:
+        earlier = OUT / "segment_kernels_earlier_design.cu"
+        earlier.write_text(SEG_EARLIER.read_text())
+        jobs["segment earlier design"] = ("segment_kernels", earlier)
+        jobs.update({f"segment {n}": ("segment_kernels",
+                                      variant("segment_kernels", f"reductions {n}", subs))
+                     for n, (subs, _) in SEG_VARIANTS.items()})
     libs = build(jobs)
     dev = torch.device("cuda", 0)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     g = torch.Generator(device=dev).manual_seed(1505_05211)
     times: dict = {}
+    if "segment" in only:
+        segment_ablation(libs, dev, times)
     if "loops" in only:
         loop_ablation(libs["loops"], libs["loop cycles"], dev, times)
     if "flash" not in only:
