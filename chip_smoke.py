@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's store, service, solver and LM-serving paths on one NVIDIA GPU.
+"""Drive the PyTorch port's store, service, solver, LM-serving and training paths on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -112,12 +112,50 @@ use (into ``build/``).  Phases:
     ``ops.block_hashes(tip)`` its plain version, and every block the
     changed-block mask marks unchanged must hash alike in both versions.
 
+(k) Training at full width.  ``repro_torch.launch.train.train`` trains
+    minicpm-2b at its full width and depth (40 layers, d 2304, 36 heads of
+    64, d_ff 5760, vocab 122,753, tied embeddings; 2.725 B parameters drawn
+    on the card from a seeded generator) for 5 steps of 8 x 1024 tokens with
+    the WSD schedule and no saves.  It prints each step's loss, grad norm,
+    lr and wall (CUDA events, step end to step end), the tokens/s of steps
+    1-4, the peak device memory and the step's bound (the matmul operations
+    of 3 forward passes, counted from the shapes by ``forward_flops``, over
+    989 TFLOP/s; the remat's recompute, a fourth, is printed on its own); one
+    more step runs under torch.profiler (busy time, idle share, top
+    kernels).  The run fails if a loss or grad norm is not finite, if
+    ``flash_attention`` launched (training takes the chunked softmax, as the
+    JAX package does), if one backward on step 0's batch leaves a parameter
+    without a finite gradient or an attention projection (wq, wk, wv, wo)
+    with an all-zero one, or if the chunked cross entropy of step 0's hidden
+    states differs from the unchunked by more than ``CE_RTOL`` relative, or
+    its gradient with respect to those states by more than ``CE_GRAD_RTOL``
+    of the norm.
+(l) The versioned-checkpoint loop of examples/train_versioned.py on the
+    card: minicpm-2b reduced, 60 steps of 8 x 128, a save every 10 steps,
+    a preemption at step 29 (emergency save), a restart that resumes from
+    the store, then ``mgr.repack()`` (Problem 6, θ = 30 s, on the card) and
+    a cold restore of every save from a freshly opened store.  Every
+    restored leaf must equal the host copy taken at its save (a sha256 per
+    leaf), the loss must fall, the trainer's 60 batches must equal an
+    uninterrupted pipeline's, no background repack may have failed, and
+    ``changed_block_mask`` and ``mp_loop`` must launch.  Each Adam step
+    changes every 4 KiB block of params and moments, so every save is
+    stored whole and the loop's restores apply no delta; the delta-apply
+    kernels are driven by a versioned corpus (16 MiB of token ids and two
+    cleaning passes that rewrite 1% of its blocks) read cold through
+    ``VersionedDatasetPipeline``, whose batches are held against the host's
+    tokens.  Then minitron-4b reduced trains 4 steps with ``grad_accum=2``
+    and compressed gradients: the losses must be finite.  It prints the
+    bytes stored before and after the repack, the max restore cost, one
+    save's bytes and the save, repack and restore walls.
+
 Phases (e) and (h)'s kernel checks run right after (a), so that every
 kernel is checked before the main path starts.  The launch counters of the
 kernels are set to 0 before each main-path phase and read after it; a
 kernel its phase should use that launched no time fails the run, as does
-any mismatch.  Phases (b), (c), (f), (g), (i), (j) and (h)'s requests are
-the main path ((j) runs after (d), on (b)'s ground truth); the launches of
+any mismatch.  Phases (b), (c), (f), (g), (i), (j), (l), (h)'s requests and
+(k) are the main path ((j) runs after (d), on (b)'s ground truth; (k) runs
+last, alone on the card's memory); the launches of
 the kernel checks, which compare kernels with their plain versions, are not
 counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
 result line).  The last lines are the card's name and power limit
@@ -128,6 +166,7 @@ of that object also carry ``launch_floor_ms``.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -158,7 +197,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefghij"
+PHASES = "abcdefghijkl"
 
 
 def log(msg: str) -> None:
@@ -1797,6 +1836,29 @@ def busy_share(prof, wall: float, top: int = 6) -> str:
             "top: " + "; ".join(f"{sec:.6f} s {name[:60]}" for name, sec in heavy))
 
 
+def kernel_classes(prof) -> str:
+    """Device time of a traced window by kernel class: f32 GEMMs (cuBLAS
+    names with ``f32f32`` or ``sgemm``), other GEMMs, elementwise kernels,
+    reductions and the rest."""
+    from torch.autograd import DeviceType
+
+    by: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n = e.name.lower()
+        if any(w in n for w in ("gemm", "xmma", "nvjet", "cutlass")):
+            cls = "f32 GEMM" if ("f32f32" in n or "sgemm" in n) else "bf16 GEMM"
+        elif "elementwise" in n:
+            cls = "elementwise"
+        elif "reduce" in n:
+            cls = "reduction"
+        else:
+            cls = "other"
+        by[cls] = by.get(cls, 0.0) + e.time_range.elapsed_us() / 1e6
+    return "; ".join(f"{cls} {sec:.6f} s" for cls, sec in sorted(by.items(), key=lambda kv: -kv[1]))
+
+
 def sync(device: str) -> None:
     import torch
 
@@ -1995,6 +2057,341 @@ def teacher_force(cfg, tf, params, prompt, generated, recorded, S) -> list:
     return fails
 
 
+# ------------------------------------------------------------- (k) training
+TRAIN_RUN = dict(arch="minicpm-2b", reduced=False, steps=5, seq_len=1024, global_batch=8,
+                 save_every=0, schedule="wsd")
+CE_RTOL = 1e-3  # chunked against unchunked CE of the same hidden states
+# ... and their gradients with respect to those states, as a norm of the
+# difference over the norm: both are bf16 (unit roundoff 2**-8 = 3.9e-3) and
+# cuBLAS may pick another algorithm for a chunk than for the whole.  A chunk
+# that took the wrong targets, or was counted twice, is off by O(1) here.
+CE_GRAD_RTOL = 1e-2
+ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
+
+
+def forward_flops(cfg, batch: int, seq: int) -> float:
+    """Matmul operations of one forward pass, counted from the shapes: 2 x
+    each layer's projection and MLP weights x B*S tokens, causal attention's
+    QK^T and PV over the S(S+1)/2 (query, key) pairs a sequence needs, and
+    the tied LM head over the B*(S-1) positions that have a target.  A train
+    step needs 3 of them (the forward and the backward's two); the remat's
+    recompute of every layer and CE chunk is a fourth, a choice of this
+    implementation that the bound does not count."""
+    D, H, KV, hd, F, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                          cfg.d_ff, cfg.n_layers)
+    mlp_w = (3 if cfg.mlp_kind == "swiglu" else 2) * D * F
+    layer_w = D * H * hd + 2 * D * KV * hd + H * hd * D + mlp_w
+    attn = 2 * 2 * batch * H * hd * seq * (seq + 1) / 2
+    head = 2 * D * cfg.padded_vocab * batch * (seq - 1)
+    return 2 * L * layer_w * batch * seq + L * attn + head
+
+
+def ce_check(head, params, hidden, targets, z_loss: float) -> str:
+    """The chunked cross entropy against the unchunked on the same hidden
+    states: the loss within ``CE_RTOL`` relative, and the gradient with
+    respect to the hidden states within ``CE_GRAD_RTOL``."""
+    import torch
+
+    from repro_torch.training.train_loop import chunked_cross_entropy, cross_entropy
+
+    h = hidden.detach().requires_grad_(True)
+    chunked = chunked_cross_entropy(head, params, h, targets, z_loss)
+    (g_chunked,) = torch.autograd.grad(chunked, h)
+    full = cross_entropy(head(params, h), targets, z_loss)
+    (g_full,) = torch.autograd.grad(full, h)
+    chunked, full = chunked.item(), full.item()
+    rel = abs(chunked - full) / abs(full)
+    g_rel = float((g_chunked.float() - g_full.float()).norm() / g_full.float().norm())
+    check(rel <= CE_RTOL, f"phase k: chunked CE differs from the unchunked by {rel:.3e}")
+    check(g_rel <= CE_GRAD_RTOL, "phase k: the chunked CE's gradient differs from the "
+          f"unchunked's by {g_rel:.3e}")
+    return (f"chunked CE {chunked:.9f}, unchunked {full:.9f}, relative difference {rel:.3e} "
+            f"(tolerance {CE_RTOL}); their gradients with respect to the hidden states "
+            f"differ by {g_rel:.3e} of the norm (tolerance {CE_GRAD_RTOL})")
+
+
+def drive_training(root: Path, counters: Counters) -> dict:
+    """Phase (k): ``train`` at full width and depth on the card (parameters
+    drawn there from a seeded generator), then, off the counted run, one
+    traced step, one backward on step 0's batch (every leaf's gradient
+    present and finite, the attention projections' non-zero) and the
+    chunked CE against the unchunked (:func:`ce_check`)."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.train import RunConfig, run_model_config, train, train_config
+    from repro_torch.models import count_params
+    from repro_torch.training.train_loop import make_loss_fn, make_train_step
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    run = RunConfig(**TRAIN_RUN, seed=SEED, ckpt_dir=str(root / "ckpt"))
+    cfg = run_model_config(run)
+    torch.cuda.reset_peak_memory_stats()
+    counters.zero()
+    t0 = time.perf_counter()
+    out = train(run, device="cuda", log_every=10**9)  # the host reads the metrics after
+    wall = time.perf_counter() - t0
+    counts = counters.read("phase k (training)", ())
+    check(counts["flash_attention"] == 0,
+          f"phase k: training launched flash_attention {counts['flash_attention']} times")
+    out["manager"].close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = out["final_state"]["params"]
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    n_norms = sum(t.numel() for name, t in _leaves(params) if "norm" in name)
+    # count_params counts no norm scale and the vocabulary unpadded
+    pad_rows = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    check(n_params - n_norms - pad_rows == count_params(cfg),
+          "phase k: parameter count differs from count_params")
+    tokens = run.global_batch * run.seq_len
+    fwd = forward_flops(cfg, run.global_batch, run.seq_len)
+    flops = 3 * fwd
+    bound_s = flops / TENSOR_FLOPS_PER_S
+    for i, (loss, gn, lr, s) in enumerate(zip(out["losses"], out["grad_norms"], out["lrs"],
+                                              out["step_s"])):
+        check(np.isfinite(loss) and np.isfinite(gn),
+              f"phase k: step {i}: loss {loss}, grad norm {gn}")
+        log(f"phase k: step {i}: loss {loss:.6f}, grad norm {gn:.6f}, lr {lr:.6e}, "
+            f"step wall {s:.6f} s{' (the first: allocations, cuBLAS plans)' if i == 0 else ''}")
+    steady = out["step_s"][1:] or out["step_s"]
+    mean = sum(steady) / len(steady)
+    log(f"phase k: {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params} "
+        f"parameters; batch {run.global_batch} x {run.seq_len}; {len(out['losses'])} steps in "
+        f"{wall:.3f} s (init included); steps 1-{len(out['step_s']) - 1}: mean {mean:.6f} s, "
+        f"min {min(steady):.6f}, max {max(steady):.6f} ({tokens / mean:.1f} tokens/s); bound "
+        f"{bound_s:.6f} s ({flops / 1e12:.3f} TFLOP over {TENSOR_FLOPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s; bound / step {bound_s / mean:.4f}); peak device memory {peak:.3f} GiB")
+    log(f"phase k: the remat's recompute, outside the bound: {fwd / 1e12:.3f} TFLOP, "
+        f"{fwd / TENSOR_FLOPS_PER_S:.6f} s at the peak rate (with it the step does "
+        f"{4 * fwd / 1e12:.3f} TFLOP, {4 * fwd / TENSOR_FLOPS_PER_S / mean:.4f} of the peak)")
+
+    # one more step under the profiler
+    bundle, tcfg = out["bundle"], train_config(run)
+    step_fn = make_train_step(bundle, tcfg)
+    state, batch = out["final_state"], out["pipe"].next_batch()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    counters.zero()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    check(np.isfinite(metrics["loss"].item()), "phase k: traced step's loss is not finite")
+    log(f"phase k: traced step: {busy_share(prof, traced, top=8)}")
+    log(f"phase k: traced step by kernel class: {kernel_classes(prof)}")
+    del prof, out, state, metrics, batch
+    torch.cuda.empty_cache()
+
+    # one backward on step 0's batch, and the chunked CE against the unchunked
+    batch0 = SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=run.seq_len,
+                                    global_batch=run.global_batch, seed=run.seed,
+                                    device="cuda").next_batch()
+    names = [k for k, _ in tree_paths(params)]
+    leaves = tree_leaves(params)
+    loss = make_loss_fn(bundle, tcfg)(params, batch0)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    counts = counters.read("phase k (checks)", ())
+    check(counts["flash_attention"] == 0, "phase k: the checks' backward launched flash")
+    bad = [n for n, g in zip(names, grads) if g is None or not bool(torch.isfinite(g).all())]
+    check(not bad, f"phase k: leaves without a finite gradient: {bad[:8]}")
+    norms = {}
+    for n, g in zip(names, grads):
+        if n.rsplit("/", 1)[-1] in ATTN_WEIGHTS:
+            norms[n] = float(g.float().norm())
+            check(bool((g != 0).any()), f"phase k: the gradient of {n} is all zero")
+    check(len(norms) == len(ATTN_WEIGHTS) * len(params["segments"]),
+          f"phase k: attention projections seen: {sorted(norms)}")
+    log("phase k: backward on step 0's batch: every leaf's gradient finite; attention "
+        "projections' gradient norms " + ", ".join(f"{n} {v:.6e}" for n, v in norms.items()))
+    del grads, loss
+    with torch.no_grad():
+        hidden, _ = bundle.train_hidden(params, batch0)
+    log("phase k: step 0's batch: " + ce_check(bundle.head, params, hidden[:, :-1],
+                                               batch0["tokens"][:, 1:], tcfg.z_loss))
+    del params, hidden
+    torch.cuda.empty_cache()
+    return {"step_s": mean, "tokens_s": tokens / mean, "bound_s": bound_s, "peak_gib": peak}
+
+
+# --------------------------------------------------- (l) checkpoint loop
+LOOP_RUN = dict(arch="minicpm-2b", reduced=True, steps=60, seq_len=128, global_batch=8,
+                save_every=10, max_restore_cost_s=30.0)
+LOOP_PREEMPT_AT = 30
+ACCUM_RUN = dict(arch="minitron-4b", reduced=True, steps=4, seq_len=128, global_batch=8,
+                 save_every=0, grad_accum=2, compress_grads=True)
+CORPUS_TOKENS = 1 << 22   # 16 MiB of int32 token ids
+CORPUS_EDITS = 2          # cleaning passes, each rewriting tokens in 1% of the blocks
+
+
+def leaf_sha(x) -> str:
+    """sha256 of a leaf's shape and bytes (a tensor, on any device, or numpy)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        raw = x.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+    else:
+        raw = np.ascontiguousarray(x).tobytes()
+    return hashlib.sha256(repr(tuple(x.shape)).encode() + raw).hexdigest()
+
+
+def drive_checkpoint_loop(root: Path, counters: Counters) -> dict:
+    """Phase (l): the versioned-checkpoint loop of examples/train_versioned.py
+    on the card (preemption, emergency save, resume, SLA repack, a cold
+    restore of every save against the sha256s of its host copy), a versioned
+    corpus read through the pipeline, and a run with accumulation and
+    compression."""
+    import torch
+
+    import repro_torch.checkpoint.versioned as ckv
+    from repro_torch import obs
+    from repro_torch.checkpoint import PreemptionGuard, VersionedCheckpointManager
+    from repro_torch.data import pipeline as dp
+    from repro_torch.launch.train import RunConfig, run_model_config, state_template, train
+    from repro_torch.store import VersionStore
+    from repro_torch.tree import tree_paths
+
+    class PreemptAt(PreemptionGuard):
+        def __init__(self, at):
+            super().__init__()
+            self.at, self.count = at, 0
+
+        @property
+        def preempted(self):
+            self.count += 1
+            return self.count >= self.at
+
+    saved, fed, copy_s = {}, [], []  # save step -> {path: sha256}; batch sha256s
+    host_copy, next_tokens = ckv.host_copy, dp.SyntheticTokenPipeline.next_tokens
+
+    def recording_copy(state):
+        t0 = time.perf_counter()
+        host = host_copy(state)
+        copy_s.append(time.perf_counter() - t0)
+        saved[int(host["data"]["step"]) - 1] = {k: leaf_sha(v) for k, v in tree_paths(host)}
+        return host
+
+    def recording_tokens(self):
+        toks = next_tokens(self)
+        fed.append(hashlib.sha256(toks.tobytes()).hexdigest())
+        return toks
+
+    ckpt = root / "ckpt"
+    run = RunConfig(**LOOP_RUN, seed=SEED, ckpt_dir=str(ckpt))
+    cfg = run_model_config(run)
+    counters.zero()
+    ckv.host_copy, dp.SyntheticTokenPipeline.next_tokens = recording_copy, recording_tokens
+    try:
+        with obs.tracing() as tracer:
+            t0 = time.perf_counter()
+            out1 = train(run, guard=PreemptAt(LOOP_PREEMPT_AT), log_every=10**9, device="cuda")
+            out1["manager"].close()
+            out2 = train(run, log_every=10**9, device="cuda")
+            train_s = time.perf_counter() - t0
+            mgr = out2["manager"]
+            mgr.wait()
+            before = mgr.store.storage_bytes()
+            last = mgr.store.versions[mgr.latest_vid()]
+            t0 = time.perf_counter()
+            stats = mgr.repack()
+            repack_s = time.perf_counter() - t0
+            check(mgr.last_repack_error is None and mgr.repack_errors == 0,
+                  f"phase l: a repack failed: {mgr.last_repack_error!r}")
+            mgr.close()
+    finally:
+        ckv.host_copy, dp.SyntheticTokenPipeline.next_tokens = host_copy, next_tokens
+    check(out1["preempted"] and out1["steps_done"] == LOOP_PREEMPT_AT,
+          f"phase l: preempted {out1['preempted']} after {out1['steps_done']} steps")
+    losses = out1["losses"] + out2["losses"]
+    check(len(losses) == run.steps and bool(np.isfinite(losses).all()),
+          f"phase l: {len(losses)} losses, finite {np.isfinite(losses).all()}")
+    check(losses[-1] < losses[0], f"phase l: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    ref = dp.SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=run.seq_len,
+                                    global_batch=run.global_batch, seed=SEED, device="cpu")
+    want = [hashlib.sha256(next_tokens(ref).tobytes()).hexdigest() for _ in range(run.steps)]
+    check(fed == want, "phase l: the trainer's batches differ from an uninterrupted "
+          f"pipeline's ({sum(a != b for a, b in zip(fed, want))} of {len(want)})")
+    opt = stats["optimize"]
+    check(opt["problem"] == 6 and opt["backend"] == "torch",
+          f"phase l: the repack ran {opt}, not Problem 6 on the card")
+    check(stats["after"]["max_recreation_s"] <= run.max_restore_cost_s,
+          f"phase l: max restore cost {stats['after']['max_recreation_s']} over θ")
+    span_s = {}
+    for sp in tracer.spans():
+        span_s.setdefault(sp.name, []).append(sp.duration)
+    commits = span_s.get("store.commit", [])
+
+    # a cold restore of every save, from a freshly opened store
+    cold = VersionedCheckpointManager(ckpt, device="cuda")
+    check(sorted(cold.step_to_vid) == sorted(saved),
+          f"phase l: steps {sorted(cold.step_to_vid)} in the store, {sorted(saved)} saved")
+    template = state_template(cfg)
+    restore_s = []
+    for step in sorted(saved):
+        t0 = time.perf_counter()
+        got = cold.restore(template, step=step)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+        digests = {k: leaf_sha(v) for k, v in tree_paths(got)}
+        check(digests == saved[step], f"phase l: step {step}: "
+              f"{sum(digests.get(k) != v for k, v in saved[step].items())} leaves differ")
+    max_cost = max(cold.restore_cost_s(s) for s in saved)
+    cold.close()
+    counters.read("phase l (checkpoint loop)", ("changed_block_mask", "mp_loop"))
+    log(f"phase l: {cfg.name}, {run.steps} steps (preempted at {LOOP_PREEMPT_AT - 1}, resumed) in "
+        f"{train_s:.3f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; saves at steps "
+        f"{sorted(saved)}; one save {last.raw_bytes} B raw, {last.stored_bytes} B stored "
+        f"({'delta' if last.stored_base else 'whole'}); host copy {np.mean(copy_s):.6f} s, "
+        f"commit (background) mean {np.mean(commits):.6f} s, max {max(commits):.6f} s over "
+        f"{len(commits)}; repack (Problem 6, θ {run.max_restore_cost_s} s) {repack_s:.3f} s "
+        f"(measure {sum(span_s.get('store.measure', [0])):.3f} s): {before} -> "
+        f"{stats['after']['storage_bytes']} B stored, max restore cost "
+        f"{stats['before']['max_recreation_s']:.6f} -> {stats['after']['max_recreation_s']:.6f}"
+        f" s modelled ({max_cost:.6f} cold); cold restores of {len(saved)} saves, every leaf "
+        f"bit-identical: mean {np.mean(restore_s):.6f} s, max {max(restore_s):.6f} s")
+
+    # a versioned corpus: a root and cleaning passes, read cold through the pipeline
+    rng = np.random.default_rng(SEED)
+    corpus = rng.integers(0, cfg.vocab, CORPUS_TOKENS, dtype=np.int32)
+    store = VersionStore(root / "corpus", device="cuda")
+    vid = store.commit({"shard0": corpus.copy()})
+    for _ in range(CORPUS_EDITS):
+        blocks = corpus.size * 4 // BLOCK
+        for b in rng.choice(blocks, max(1, blocks // 100), replace=False):
+            corpus[b * BLOCK // 4] = rng.integers(0, cfg.vocab)
+        vid = store.commit({"shard0": corpus.copy()}, parents=[vid])
+    check(store.versions[vid].stored_base is not None, "phase l: the cleaning pass was "
+          "stored whole, not as a delta")
+    store.close()
+    counters.zero()
+    pipe = dp.VersionedDatasetPipeline(VersionStore(root / "corpus", device="cuda"), vid,
+                                       seq_len=run.seq_len, global_batch=run.global_batch)
+    check(np.array_equal(pipe.stream.cpu().numpy(), corpus), "phase l: the corpus differs")
+    need = run.global_batch * (run.seq_len + 1)
+    for i in range(3):
+        tokens = pipe.next_batch()["tokens"].cpu().numpy()
+        start = (i * need) % max(1, corpus.size - need)
+        check(np.array_equal(tokens, corpus[start:start + run.global_batch * run.seq_len]
+                             .reshape(run.global_batch, run.seq_len)),
+              f"phase l: corpus batch {i} differs")
+    counts = counters.read("phase l (versioned corpus)", ())
+    check(counts["chain_delta_apply"] + counts["sparse_delta_apply"] > 0,
+          "phase l: the corpus checkout launched no delta-apply kernel")
+
+    # accumulation and compression
+    counters.zero()
+    acc = train(RunConfig(**ACCUM_RUN, seed=SEED, ckpt_dir=str(root / "accum")),
+                log_every=10**9, device="cuda")
+    acc["manager"].close()
+    counters.read("phase l (accumulation)", ())
+    check(len(acc["losses"]) == ACCUM_RUN["steps"] and bool(np.isfinite(acc["losses"]).all()),
+          f"phase l: accumulation run losses {acc['losses']}")
+    log(f"phase l: {ACCUM_RUN['arch']} reduced, grad_accum {ACCUM_RUN['grad_accum']}, "
+        f"compressed grads: losses {', '.join(f'{x:.6f}' for x in acc['losses'])}")
+    return {"repack_s": repack_s, "restore_s": restore_s, "commit_s": commits}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2051,7 +2448,10 @@ def main(argv=None) -> int:
         phase("f", lambda: (drive_solvers(counters), solver_trace()))
         phase("g", drive_repack, Path(tmp) / "repack", counters)
         phase("i", drive_service, Path(tmp) / "service", counters)
+        phase("l", drive_checkpoint_loop, Path(tmp) / "train_loop", counters)
     phase("h", drive_serving, counters)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
+        phase("k", drive_training, Path(tmp), counters)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"total wall {time.perf_counter() - start:.3f} s")
 

@@ -41,6 +41,13 @@ def kernel_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     return q.device.type != "cuda" or q.dtype == k.dtype == v.dtype == torch.bfloat16
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will need an output computed from ``tensors``: grad
+    mode is on and one of them requires grad.  The kernel has no backward,
+    so it must not run then."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(
     q: torch.Tensor,   # (B, Sq, H, hd)
     k: torch.Tensor,   # (B, Sk, KV, hd)
@@ -56,7 +63,8 @@ def flash_attention(
     (positions count from 0 in both).  Returns (B, Sq, H, hd) in q's dtype.
 
     CPU tensors take :func:`~.ref.flash_attention_ref`; CUDA tensors launch
-    the kernel (bf16, hd in :data:`HEAD_DIMS`, H / KV at most
+    the kernel, which has no backward, so an input that requires grad under
+    grad mode raises (bf16, hd in :data:`HEAD_DIMS`, H / KV at most
     :data:`MAX_GROUP`, the head dim contiguous, 16-byte strides and start,
     as TMA reads them) or raise.
     """
@@ -76,6 +84,12 @@ def flash_attention(
     if is_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, softmax_scale=scale,
                                    block_k=block_k)
+    if needs_grad(q, k, v):
+        raise ValueError(
+            "the CUDA flash kernel is forward-only and its output would carry no "
+            "gradient: under autograd, attention takes the chunked softmax "
+            "(models.attention._full_attention)"
+        )
     if not kernel_takes(q, k, v):
         raise ValueError(
             f"the CUDA kernel takes bf16 with hd in {HEAD_DIMS} and at most "

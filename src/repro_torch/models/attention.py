@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention import flash_attention, kernel_takes
+from ..kernels.flash_attention import flash_attention, kernel_takes, needs_grad
 from .layers import Params, apply_rope, chunked_attention, rms_norm, rope_table
 
 _LATER = "waits for the {} family (ROADMAP Queue 1, other model families)"
@@ -37,10 +37,13 @@ def _full_attention(q, k, v, *, causal: bool):
     takes it (uniform head dims, sequences that are multiples of 128, more
     than one query) and the kernel takes the shape (``kernel_takes``: its
     head dims and group sizes, bf16 on the card), the chunked online softmax
-    otherwise.  The route is chosen from the shapes before any launch."""
+    otherwise.  The flash kernel has no backward (nor has the JAX package's),
+    so wherever autograd will need the output (grad mode on and q, k or v
+    requiring grad: training) the route is the chunked softmax, the JAX
+    package's own training route.  The route is chosen before any launch."""
     Sq, Sk = q.shape[1], k.shape[1]
-    if (q.shape[-1] == v.shape[-1] and Sq % 128 == 0 and Sk % 128 == 0 and Sq > 1
-            and kernel_takes(q, k, v)):
+    if (not needs_grad(q, k, v) and q.shape[-1] == v.shape[-1] and Sq % 128 == 0
+            and Sk % 128 == 0 and Sq > 1 and kernel_takes(q, k, v)):
         bq = 512 if Sq % 512 == 0 else 128
         bk = 512 if Sk % 512 == 0 else 128
         return flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)

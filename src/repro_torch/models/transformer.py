@@ -5,8 +5,11 @@ Layers are partitioned into **segments**: maximal runs of a repeating unit.
 Each segment stacks its parameters over the repeat axis, exactly as the JAX
 package's parameter tree does (``params["segments"][i][j][name]`` has the
 repeat count first); where JAX scans a segment, the port loops over the
-stack index in Python.  There is no remat (the port has no training step
-yet).
+stack index in Python.  In training (``mode="train"`` under autograd) each
+layer runs inside ``torch.utils.checkpoint``, the JAX package's default
+``full`` remat policy: only each layer's input is kept, and the layer is
+recomputed in the backward pass.  The ``REPRO_REMAT_POLICY=dots`` knob has no
+counterpart yet (ROADMAP Queue 1).
 
 Block kinds: ``attn`` (GQA) with a dense MLP.  ``mla``, ``rglru``, ``rwkv``
 and MoE MLPs wait for their families (ROADMAP Queue 1) and raise.
@@ -18,6 +21,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import resolve_device
@@ -73,49 +77,68 @@ def _nrm(gen: torch.Generator, shape, std, device, dtype=torch.bfloat16) -> torc
     return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * std).to(dtype)
 
 
-def block_init(cfg: ModelConfig, kind: str, use_moe: bool, generator: torch.Generator,
-               *, repeats: Optional[int] = None, device="cuda") -> Params:
-    """One block's parameters (the shapes, stds and dtypes of the JAX
-    package's ``block_init``), or ``repeats`` of them stacked on a leading
-    axis, drawn on ``device`` from ``generator`` (a generator of that
-    device)."""
+def block_spec(cfg: ModelConfig, kind: str, use_moe: bool,
+               *, repeats: Optional[int] = None) -> Dict[str, Any]:
+    """One block's parameters as ``name -> (shape, std)``, ``std`` None for
+    the zero-initialised norm scales; ``repeats`` of them stacked on a
+    leading axis.  The shapes and stds are those of the JAX package's
+    ``block_init``; every leaf is bf16."""
     _check_kind(cfg, kind, use_moe)
     D, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     std = 0.02
     out_std = std / max(1, cfg.n_layers) ** 0.5
     lead = () if repeats is None else (repeats,)
-
-    def nrm(shape, s):
-        return _nrm(generator, lead + shape, s, device)
-
-    def zeros(shape):
-        return torch.zeros(lead + shape, dtype=torch.bfloat16, device=device)
-
-    p: Params = {"norm1": zeros((D,))}
-    p.update(
-        wq=nrm((D, H, hd), std),
-        wk=nrm((D, KV, hd), std),
-        wv=nrm((D, KV, hd), std),
-        wo=nrm((H, hd, D), out_std),
-    )
+    spec: Dict[str, Any] = {
+        "norm1": (lead + (D,), None),
+        "wq": (lead + (D, H, hd), std),
+        "wk": (lead + (D, KV, hd), std),
+        "wv": (lead + (D, KV, hd), std),
+        "wo": (lead + (H, hd, D), out_std),
+    }
     if cfg.qk_norm:
-        p["q_norm"] = zeros((hd,))
-        p["k_norm"] = zeros((hd,))
-    p["norm2"] = zeros((D,))
+        spec["q_norm"] = (lead + (hd,), None)
+        spec["k_norm"] = (lead + (hd,), None)
+    spec["norm2"] = (lead + (D,), None)
     F = cfg.d_ff
     if cfg.mlp_kind == "swiglu":
-        p["mlp"] = {
-            "w_gate": nrm((D, F), std),
-            "w_up": nrm((D, F), std),
-            "w_down": nrm((F, D), out_std),
+        spec["mlp"] = {
+            "w_gate": (lead + (D, F), std),
+            "w_up": (lead + (D, F), std),
+            "w_down": (lead + (F, D), out_std),
         }
     else:
-        p["mlp"] = {
-            "w_in": nrm((D, F), std),
-            "w_out": nrm((F, D), out_std),
+        spec["mlp"] = {
+            "w_in": (lead + (D, F), std),
+            "w_out": (lead + (F, D), out_std),
         }
-    return p
+    return spec
+
+
+def _spec_map(fn, spec: Any) -> Any:
+    """``fn`` applied to every ``(shape, std)`` leaf of a spec, in its
+    insertion order (the order the leaves are drawn in)."""
+    if isinstance(spec, dict):
+        return {k: _spec_map(fn, v) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [_spec_map(fn, v) for v in spec]
+    return fn(*spec)
+
+
+def _draw(spec: Any, generator: torch.Generator, device) -> Any:
+    """A spec's leaves drawn on ``device``: zeros where ``std`` is None."""
+    return _spec_map(
+        lambda shape, std: (torch.zeros(shape, dtype=torch.bfloat16, device=device)
+                            if std is None else _nrm(generator, shape, std, device)),
+        spec)
+
+
+def block_init(cfg: ModelConfig, kind: str, use_moe: bool, generator: torch.Generator,
+               *, repeats: Optional[int] = None, device="cuda") -> Params:
+    """One block's parameters (:func:`block_spec`), or ``repeats`` of them
+    stacked on a leading axis, drawn on ``device`` from ``generator`` (a
+    generator of that device)."""
+    return _draw(block_spec(cfg, kind, use_moe, repeats=repeats), generator, device)
 
 
 # --------------------------------------------------------------- block apply
@@ -155,44 +178,67 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 # ------------------------------------------------------------------- the LM
-def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Params:
-    """The JAX package's parameter tree (``embed``, ``final_norm``,
-    ``lm_head`` unless tied, ``segments``), drawn on ``device`` from
-    ``generator``, which must be a generator of that device.  The shapes,
-    stds and dtypes are JAX's; the random stream is not."""
-    device = resolve_device(device)
+def param_spec(cfg: ModelConfig) -> Params:
+    """The parameter tree as ``(shape, std)`` leaves (``std`` None: zeros):
+    ``embed``, ``final_norm``, ``lm_head`` unless tied, ``segments``."""
     D, V = cfg.d_model, cfg.padded_vocab
-    p: Params = {
-        "embed": _nrm(generator, (V, D), 0.02, device),
-        "final_norm": torch.zeros((D,), dtype=torch.bfloat16, device=device),
-    }
+    spec: Params = {"embed": ((V, D), 0.02), "final_norm": ((D,), None)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = _nrm(generator, (D, V), 0.02, device)
-    p["segments"] = [
-        [block_init(cfg, kind, use_moe, generator, repeats=seg.repeats, device=device)
-         for kind, use_moe in seg.unit]
+        spec["lm_head"] = ((D, V), 0.02)
+    spec["segments"] = [
+        [block_spec(cfg, kind, use_moe, repeats=seg.repeats) for kind, use_moe in seg.unit]
         for seg in segments(cfg)
     ]
-    return p
+    return spec
 
 
-def _layer(tree: Any, r: int) -> Any:
-    """Layer ``r`` of a stacked tree (views: writes reach the stack)."""
+def param_shapes(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16) -> Params:
+    """The parameter tree as ``(shape, dtype)`` leaves, from the shapes
+    alone (a restore template that allocates nothing); the params are bf16,
+    their optimizer moments f32."""
+    return _spec_map(lambda shape, std: (shape, dtype), param_spec(cfg))
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Params:
+    """The JAX package's parameter tree (:func:`param_spec`), drawn on
+    ``device`` from ``generator``, which must be a generator of that device.
+    The shapes, stds and dtypes are JAX's; the random stream is not."""
+    return _draw(param_spec(cfg), generator, resolve_device(device))
+
+
+def _unstack(tree: Any, repeats: int) -> List[Any]:
+    """The ``repeats`` layers of a stacked tree (parameters or caches), as
+    views made by one ``unbind`` a leaf: writes reach the stack, and under
+    autograd the layers' gradients are stacked into the leaf's once, where a
+    view per layer would add a zero-filled full-size gradient for each
+    layer."""
     if isinstance(tree, dict):
-        return {k: _layer(v, r) for k, v in tree.items()}
-    return tree[r]
+        per_key = {k: _unstack(v, repeats) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per_key.items()} for r in range(repeats)]
+    return list(torch.unbind(tree))
+
+
+def _train_block(cfg: ModelConfig, kind: str, use_moe: bool, p: Params,
+                 x: torch.Tensor) -> torch.Tensor:
+    return block_apply(cfg, kind, use_moe, p, x, mode="train")[0]
 
 
 def _run_segments(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                   mode: str, caches=None, pos: int = 0):
+    remat = mode == "train" and torch.is_grad_enabled()
     for si, seg in enumerate(segments(cfg)):
-        p_seg = params["segments"][si]
-        c_seg = caches[si] if caches is not None else None
+        p_units = [_unstack(p, seg.repeats) for p in params["segments"][si]]
+        c_units = ([_unstack(c, seg.repeats) for c in caches[si]] if caches is not None
+                   else None)
         for r in range(seg.repeats):
             for j, (kind, use_moe) in enumerate(seg.unit):
+                if remat:
+                    x = checkpoint(_train_block, cfg, kind, use_moe, p_units[j][r], x,
+                                   use_reentrant=False, preserve_rng_state=False)
+                    continue
                 x, _ = block_apply(
-                    cfg, kind, use_moe, _layer(p_seg[j], r), x, mode=mode,
-                    cache=_layer(c_seg[j], r) if c_seg is not None else None,
+                    cfg, kind, use_moe, p_units[j][r], x, mode=mode,
+                    cache=c_units[j][r] if c_units is not None else None,
                     pos=pos,
                 )
     return x, caches

@@ -349,7 +349,11 @@ class TestEntryPoints:
             " repro_torch.core.solvers.torch_backend, repro_torch.configs,"
             " repro_torch.models, repro_torch.models.convert,"
             " repro_torch.kernels.flash_attention, repro_torch.serving,"
-            " repro_torch.launch, repro_torch.launch.serve;"
+            " repro_torch.launch, repro_torch.launch.serve, repro_torch.launch.train,"
+            " repro_torch.training, repro_torch.training.optimizer,"
+            " repro_torch.training.train_loop, repro_torch.training.elastic,"
+            " repro_torch.distributed.compression,"
+            " repro_torch.checkpoint, repro_torch.data.pipeline, repro_torch.tree;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad"
