@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's store, service, solver, LM-serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA) and training paths on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -149,13 +149,48 @@ use (into ``build/``).  Phases:
     bytes stored before and after the repack, the max restore cost, one
     save's bytes and the save, repack and restore walls.
 
+(m) DeepSeek-V3 serving (MLA, a shared and 256 routed experts, top 8).
+    The published widths (d 7168, 128 heads, q/kv LoRA ranks 1536/512,
+    rope/nope/v dims 64/128/128, expert d_ff 2048, dense d_ff 18432, vocab
+    129,280), with the depth cut from 61 to 5 layers because the card's
+    80 GB hold no more: 3 dense MLA layers and 2 MLA + MoE layers, plus the
+    MTP head's parameters (27.3 B, 54.6 GB bf16, drawn on the card from a
+    seeded generator; the tree must number ``count_params`` less the MTP
+    block's GQA-for-MLA miscount, ROADMAP Queue 3).  The first MoE layer's
+    real input (1 x 1024 tokens) goes through ``moe_block`` and through
+    ``moe_block_plain``, each token's experts summed one by one with no
+    dispatch, drop-free (buffers (256, 1, 1025, 7168)): every token within
+    2e-2 of the plain sum's norm; at the published capacity factor the plain
+    sum must single out the tokens that lost a route.  Two greedy requests of
+    2 x 512 tokens and 16 new, drop-free, one through each MLA cache form
+    (full ``{"k", "v"}`` and the compressed latent), are each held against
+    teacher forcing on their own routes (``moe_teacher_force``: every MoE
+    layer of the teacher is the plain sum on the experts the engine chose,
+    so near-tie route flips, counted and printed, cannot hide a dispatch
+    fault), and against each other.  Then, at the published cf 1.25 (C =
+    40), a timed prefill of 4 x 1024 tokens and 16 decode steps in each cache
+    form: walls, peak memory, the share of routes dropped, and one traced
+    decode step (idle share, top kernels, and the expert weights every step
+    reads: C = 1 slot per expert runs all 256 experts of both MoE layers).
+    MLA takes the chunked softmax, as the JAX package's does: no kernel of
+    the repo is on this path.
+(n) Phi-3.5-MoE serving (GQA 32 / 8 heads of 128, 16 experts, top 2, d
+    4096, expert d_ff 6400, vocab 32,064), the depth cut from 32 to 16
+    layers (21.1 B, 42.1 GB).  The same layer check; a ServeEngine of batch
+    4 answers greedy requests of 16 tokens with prompts of 2048 tokens (the
+    prefill takes the flash kernel, one launch a layer) and 1000 (the
+    chunked softmax), drop-free, each held against teacher forcing as in
+    (m); then a timed prefill of 4 x 2048 and 16 decode steps at cf 1.25,
+    one decode step traced.  The flash launches of the phase are counted.
+
 Phases (e) and (h)'s kernel checks run right after (a), so that every
 kernel is checked before the main path starts.  The launch counters of the
 kernels are set to 0 before each main-path phase and read after it; a
 kernel its phase should use that launched no time fails the run, as does
-any mismatch.  Phases (b), (c), (f), (g), (i), (j), (l), (h)'s requests and
-(k) are the main path ((j) runs after (d), on (b)'s ground truth; (k) runs
-last, alone on the card's memory); the launches of
+any mismatch.  Phases (b), (c), (f), (g), (i), (j), (l), (h)'s requests,
+(m), (n) and (k) are the main path ((j) runs after (d), on (b)'s ground
+truth; (m), (n) and (k) run last, each alone on the card's memory); the
+launches of
 the kernel checks, which compare kernels with their plain versions, are not
 counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
 result line).  The last lines are the card's name and power limit
@@ -197,7 +232,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefghijkl"
+PHASES = "abcdefghijklmn"
 
 
 def log(msg: str) -> None:
@@ -1704,6 +1739,7 @@ FLASH_TOL = 2e-2
 # tensor, as a fused QKV projection would give them
 FLASH_SHAPES = (
     ("serving", 8, 2048, 2048, 24, 8, 128, True, None, False),  # minitron-4b's prefill
+    ("phi serving", 4, 2048, 2048, 32, 8, 128, True, None, False),  # phase (n)'s prefill
     ("S=1152", 8, 1152, 1152, 24, 8, 128, True, None, False),   # 128 | S, 512 does not
     ("g=1 hd=64", 2, 2048, 2048, 36, 36, 64, True, None, False),  # minicpm-2b's heads
     ("g=9", 2, 2048, 2048, 36, 4, 128, True, None, False),      # starcoder2-7b's heads
@@ -1716,7 +1752,7 @@ FLASH_SHAPES = (
     ("S=200", 2, 200, 200, 24, 8, 128, True, None, False),      # keys past a tile, called directly
     ("Sq=128 Sk=2048", 2, 128, 2048, 24, 8, 128, False, None, False),
 )
-FLASH_TIMED = ("S=1152", "g=1 hd=64", "g=9", "g=9 B=8")  # logged beside SDPA
+FLASH_TIMED = ("phi serving", "S=1152", "g=1 hd=64", "g=9", "g=9 B=8")  # logged beside SDPA
 
 
 def flash_blocks(S: int) -> int:
@@ -2055,6 +2091,564 @@ def teacher_force(cfg, tf, params, prompt, generated, recorded, S) -> list:
         f"{float(gap.mean()):.6f}; " + "; ".join(report) + f"; {int(sure.sum())} of "
         f"{sure.size} tokens past the margin, {disagree} differ from the teacher's argmax")
     return fails
+
+
+# ------------------------------------------------------- (m), (n) MoE serving
+DS_ARCH = "deepseek-v3-671b"
+DS_LAYERS = 5            # of 61: 3 dense + 2 MoE, what the card's 80 GB holds
+DS_CHECK_TOKENS = 1024   # the MoE layer check, one row
+DS_PROMPT = 512          # the two greedy requests (batch 2), one per cache form
+DS_NEW = 16
+DS_BATCH = 2
+DS_TIMED = (4, 1024, 16)  # batch, prompt, decode steps at the published cf
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+PHI_LAYERS = 16          # of 32
+PHI_BATCH = 4
+PHI_PROMPTS = (2048, 1000)  # the flash kernel, the chunked softmax
+PHI_NEW = 16
+MOE_TOL = 2e-2           # the MoE layer against its plain sum, ||d|| / ||plain|| a token
+MOE_REL_TOL = 0.1        # a decode step's logits against teacher forcing, ||d - t|| / ||t||
+
+
+class RouteLog:
+    """While active, records the top-k experts (B, S, K) of every MoE layer
+    call, in call order, by wrapping ``repro_torch.models.moe.route``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe, self._route = [], moe, moe.route
+
+        def route(cfg, logits):
+            top_w, top_e = self._route(cfg, logits)
+            self.calls.append(top_e)
+            return top_w, top_e
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def moe_model(name: str, n_layers: int, phase: str):
+    """The published config of ``name`` cut to ``n_layers``, and its
+    parameters drawn on the card from a seeded generator."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import count_params, get_model
+
+    full = ARCHS[name]
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED),
+                                 device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    n_norms = sum(t.numel() for name_, t in _leaves(params) if "norm" in name_)
+    pad = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    log(f"phase {phase}: {cfg.name} at its published widths (d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_experts} experts top {cfg.top_k} of d_ff {cfg.expert_d_ff}, "
+        f"{cfg.n_shared_experts} shared, dense d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+        f"{cfg.padded_vocab}), depth cut from {full.n_layers} to {cfg.n_layers} layers "
+        f"({min(cfg.n_dense_layers, cfg.n_layers)} dense, "
+        f"{max(0, cfg.n_layers - cfg.n_dense_layers)} MoE{', the MTP head' if cfg.mtp else ''})"
+        f": {n_params} parameters, {n_params * 2 / 1e9:.3f} GB bf16, drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s; the published depth: {count_params(full)} "
+        f"parameters by count_params, {count_params(full) * 2 / 1e12:.3f} TB bf16")
+    # count_params counts no norm scales nor the vocab's padding, and counts
+    # an MTP block as a GQA block (ROADMAP Queue 3)
+    D, H, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    gqa = D * H * hd + 2 * D * cfg.n_kv_heads * hd + H * hd * D
+    mla = (D * cfg.q_lora_rank + cfg.q_lora_rank * H * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+           + D * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+           + cfg.kv_lora_rank * H * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+           + H * cfg.v_head_dim * D)
+    miscount = gqa - mla if cfg.mtp and cfg.blocks()[-1] == "mla" else 0
+    check(n_params - n_norms == count_params(cfg) + pad - miscount,
+          f"phase {phase}: {n_params - n_norms} parameters against count_params "
+          f"{count_params(cfg)} + {pad} padding - {miscount} (MTP counted as GQA)")
+    return cfg, params
+
+
+def drop_free(cfg):
+    """``cfg`` at capacity E / K: no route is ever dropped (as ``reduced()``)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def moe_layer_input(cfg, params, tokens):
+    """The (params, input) of the model's first MoE layer on ``tokens``: a
+    real layer input, taken by wrapping ``moe.moe_block`` through one
+    teacher-forcing pass."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    seen, block = [], moe.moe_block
+
+    def capture(cfg_, p, x):
+        if not seen:
+            seen.append((p, x.clone()))
+        return block(cfg_, p, x)
+
+    moe.moe_block = capture
+    try:
+        with torch.no_grad():
+            tf.forward_hidden(cfg, params, tokens)
+    finally:
+        moe.moe_block = block
+    return seen[0]
+
+
+def moe_layer_check(phase: str, cfg, params, tokens) -> dict:
+    """``moe_block`` against ``moe_block_plain`` (each token's routes summed
+    expert by expert, no capacity, no dispatch) on the model's first MoE
+    layer input, drop-free: every token within MOE_TOL of the plain sum's
+    norm, no route dropped.  Then at the published capacity factor on the
+    same input: the dispatch drops routes, and the plain sum must single out
+    the tokens that lost one (they differ, the others stay within MOE_TOL),
+    which shows the check sees a lost route.  Both are timed once."""
+    import torch
+
+    from repro_torch.models import moe
+
+    free = drop_free(cfg)
+    p, x = moe_layer_input(free, params, tokens)
+    S, E = x.shape[1], cfg.n_experts
+    with torch.no_grad():
+        top_e = moe.route(free, moe.router_logits(p, x))[1]
+        lost = int((moe.positions(top_e, E) >= moe.capacity(free, S)).sum())
+        t0 = time.perf_counter()
+        got = moe.moe_block(free, p, x)
+        torch.cuda.synchronize()
+        block_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = moe.moe_block_plain(free, p, x)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = (got.float() - want.float()).abs()
+        rel = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)
+        C = moe.capacity(cfg, S)
+        dropped = (moe.positions(top_e, E) >= C).any(-1)            # (B, S) a token lost one
+        at_cf = moe.moe_block(cfg, p, x)
+        rel_cf = (at_cf.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)
+    kept = _max(rel_cf[~dropped])
+    lost_rel = rel_cf[dropped]
+    log(f"phase {phase}: moe_block against its plain per-token sum on the first MoE layer's "
+        f"input ({tuple(x.shape)}, drop-free capacity {moe.capacity(free, S)}, buffers "
+        f"({E}, {x.shape[0]}, {moe.capacity(free, S) + 1}, {cfg.d_model})): a token's "
+        f"||d|| / ||plain|| max {float(rel.max()):.6f}, max abs {float(err.max()):.6f}, "
+        f"{lost} routes dropped; moe_block {block_s:.6f} s, plain {plain_s:.6f} s (one call "
+        f"each). At cf {cfg.capacity_factor} (C = {C}): "
+        f"{int(dropped.sum())} of {dropped.numel()} tokens lost a route, their ||d|| / "
+        f"||plain|| min {float(lost_rel.min()) if lost_rel.numel() else 0.0:.6f} median "
+        f"{float(lost_rel.median()) if lost_rel.numel() else 0.0:.6f}; the other tokens' max "
+        f"{kept:.6f}")
+    check(lost == 0, f"phase {phase}: {lost} routes dropped at drop-free capacity")
+    check(float(rel.max()) <= MOE_TOL, f"phase {phase}: moe_block differs from its plain "
+          f"sum by {float(rel.max())} of a token's norm (tolerance {MOE_TOL})")
+    check(bool((lost_rel > 0).all()) and kept <= MOE_TOL,
+          f"phase {phase}: at cf {cfg.capacity_factor} the plain sum does not single out the "
+          f"{int(dropped.sum())} tokens that lost a route (kept tokens' max {kept})")
+    return {"max_abs_err": float(err.max()), "moe_block_s": block_s, "plain_s": plain_s,
+            "cf_dropped_tokens": int(dropped.sum())}
+
+
+class LogitLog:
+    """Wraps a bundle's prefill and decode_step to keep the last position's
+    logits (B, vocab) f32 of every call."""
+
+    def __init__(self, bundle):
+        import dataclasses
+
+        self.logits = []
+
+        def record(fn):
+            def wrapped(*args):
+                logits, cache = fn(*args)
+                self.logits.append(logits[:, -1, :bundle.cfg.vocab].float().clone())
+                return logits, cache
+            return wrapped
+
+        self.bundle = dataclasses.replace(bundle, prefill=record(bundle.prefill),
+                                          decode_step=record(bundle.decode_step))
+
+
+def _max(t) -> float:
+    return float(t.max()) if t.numel() else 0.0
+
+
+class ForcedRoutes:
+    """While active, an MoE model runs as a plain, dispatch-free reference on
+    routes handed to it: each MoE layer is ``moe_block_plain`` (each token's
+    experts summed expert by expert), whose routes are ``routes[i]`` (B, n, K)
+    for the i-th MoE layer call at its first n positions (its own beyond
+    them), weighted by its own gates at those experts.  ``flipped[i]`` (B, n)
+    marks the tokens whose own top-k set differs from the one handed over."""
+
+    def __init__(self, routes: list):
+        self.routes, self.flipped = routes, []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self._moe, self._route, self._block = moe, moe.route, moe.moe_block
+
+        def route(cfg, logits):
+            _, own = self._route(cfg, logits)
+            forced = self.routes[len(self.flipped)]
+            n = forced.shape[1]
+            top_e = torch.cat([forced, own[:, n:]], dim=1)
+            top_w = torch.softmax(logits, dim=-1).gather(-1, top_e)
+            self.flipped.append((own[:, :n].sort(dim=-1).values
+                                 != forced.sort(dim=-1).values).any(-1))
+            return top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9), top_e
+
+        moe.route, moe.moe_block = route, moe.moe_block_plain
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route, self._moe.moe_block = self._route, self._block
+
+
+class ChunkedRoute:
+    """While active, every attention of a forward pass takes the chunked
+    softmax with key chunks of ``chunk`` (the flash kernel never runs)."""
+
+    def __init__(self, chunk: int):
+        self.chunk = chunk
+
+    def __enter__(self):
+        import functools
+
+        from repro_torch.models import attention
+
+        self._attention = attention
+        self._saved = attention._full_attention, attention.chunked_attention
+        chunked = functools.partial(self._saved[1], chunk=self.chunk)
+        attention.chunked_attention = chunked
+        attention._full_attention = lambda q, k, v, *, causal: chunked(q, k, v, causal=causal)
+        return self
+
+    def __exit__(self, *exc):
+        self._attention._full_attention, self._attention.chunked_attention = self._saved
+
+
+def moe_teacher_force(phase: str, cfg, params, prompt, generated, logits: list,
+                      engine_routes: list) -> tuple:
+    """Hold one request of an MoE model against teacher forcing over its
+    prompt and generated tokens, drop-free.
+
+    The teacher is a plain reference on the request's own routes
+    (:class:`ForcedRoutes`): every MoE layer computes ``sum_k w_k ·
+    FFN_{e_k}(x)`` token by token with no capacity, slots or buffers, on the
+    experts the engine chose for that token (prefill and decode steps), with
+    weights from its own gates.  Routes are discrete: where a token's K-th
+    and (K+1)-th gates lie within bf16 noise of each other, two bf16 paths
+    may choose differently, and the token's state then moves by a whole
+    expert's output in every later layer.  Handing the teacher the engine's
+    routes leaves only the continuous bf16 differences; the flips are
+    counted and printed (the teacher's own top-k against the engine's), not
+    hidden.
+
+    The prefill's last logits must equal those of a teacher over the prompt
+    alone within rtol = atol = 2e-2, as phase (h) holds them: the same
+    attention route and, unlike a teacher over the whole request, the same
+    tokens an expert's GEMM gets (cuBLAS picks its kernel, and so its
+    rounding, by the GEMM's size).  The decode steps are held against a
+    teacher over the whole request (padded to a multiple of 128 where the
+    prefill took the flash kernel).  A decode step attends through the
+    one-query softmax, which rounds otherwise, and at random weights 16 MoE
+    layers carry such rounding to 5-10% of the logits' norm: each decode
+    step must be within MOE_REL_TOL of the
+    teacher's norm (||d - t|| / ||t||), or within twice the gap of two
+    chunked-softmax teachers on the same routes that differ only in their
+    key chunk (1024 and 256), a gauge of that rounding that takes neither
+    the flash kernel nor the decode path.  A route sent to a wrong slot, a
+    wrong weight or a lost route moves a token's logits by a large part of
+    their norm, and the layer check (:func:`moe_layer_check`) holds the
+    dispatch to 2e-2 of a token's norm.  Returns (failures, summary)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    S, new = prompt.shape[1], generated.shape[1]
+    full = torch.cat([torch.as_tensor(prompt, dtype=torch.int64),
+                      torch.as_tensor(generated[:, :-1], dtype=torch.int64)], 1)
+    full = full.to(params["embed"].device)
+    n = full.shape[1]
+    n_moe = cfg.n_layers - min(cfg.n_dense_layers, cfg.n_layers)
+    length = -(-n // 128) * 128 if S % 128 == 0 else n      # the engine's attention route
+    routes = [torch.cat(engine_routes[i::n_moe], dim=1) for i in range(n_moe)]
+    with ForcedRoutes([r[:, :S] for r in routes]):
+        pre = teacher_logits(cfg, tf, params, full[:, :S], S, S)[:, 0]
+    with ForcedRoutes(routes) as fr:
+        want = teacher_logits(cfg, tf, params, full, S, length)
+    gauge = []
+    for chunk in (1024, 256):
+        with ForcedRoutes(routes), ChunkedRoute(chunk):
+            gauge.append(teacher_logits(cfg, tf, params, full, S, n))
+    gap = ((gauge[0] - gauge[1]).norm(dim=-1) / gauge[0].norm(dim=-1))[:, 1:]
+    bound = max(MOE_REL_TOL, 2 * _max(gap))
+    flipped = torch.stack(fr.flipped)                        # (n_moe, B, n)
+    got = torch.stack(logits[:new], dim=1)                   # (B, new, vocab)
+    diff = (got - want).abs()
+    rel = diff.norm(dim=-1) / want.norm(dim=-1)
+    pre_diff = (got[:, 0] - pre).abs()
+    pre_ratio = float((pre_diff / (2e-2 + 2e-2 * pre.abs())).max())
+    argmax_same = int((want.argmax(-1).cpu().numpy() == generated).sum())
+    summary = {"routes_differed": int(flipped.sum()), "token_layers": flipped.numel(),
+               "tokens_flipped": int(flipped.any(0).sum()), "max_rel": _max(rel[:, 1:]),
+               "mean_rel": float(rel[:, 1:].mean()), "prefill_max_abs": float(pre_diff.max()),
+               "prefill_ratio": pre_ratio, "max_abs": float(diff.max()),
+               "chunk_gap": _max(gap), "bound": bound, "teacher_length": length}
+    log(f"phase {phase}: prompt {S}: teacher forcing over {n} tokens (run at {length}) on the "
+        f"request's routes: the teacher's own top-{cfg.top_k} differed in "
+        f"{summary['routes_differed']} of {summary['token_layers']} (token, MoE layer) pairs, "
+        f"at {summary['tokens_flipped']} of {flipped.shape[1] * flipped.shape[2]} tokens; "
+        f"prefill against the prompt's teacher max abs {summary['prefill_max_abs']:.6f} "
+        f"(allclose ratio {pre_ratio:.4f} at 2e-2), against the whole request's max abs "
+        f"{float(diff[:, 0].max()):.6f}, ||d - t|| / ||t|| {float(rel[:, 0].max()):.6f}; decode "
+        f"||d - t|| / ||t|| max "
+        f"{summary['max_rel']:.6f} mean {summary['mean_rel']:.6f}, max abs "
+        f"{_max(diff[:, 1:]):.6f}; chunk 1024 and 256 teachers' decode gap ||.|| / ||t|| max "
+        f"{summary['chunk_gap']:.6f}; bound {bound:.6f}; {argmax_same} of {generated.size} "
+        "greedy tokens equal the teacher's argmax")
+    fails = []
+    if pre_ratio > 1.0:
+        fails.append(f"prompt {S}: the prefill's logits differ from teacher forcing by "
+                     f"{summary['prefill_max_abs']} (allclose ratio {pre_ratio} at rtol = atol "
+                     "= 2e-2)")
+    if summary["max_rel"] > bound:
+        b, j = [int(v) for v in torch.nonzero(rel[:, 1:] > bound)[0]]
+        fails.append(f"prompt {S}: {int((rel[:, 1:] > bound).sum())} decode steps differ from "
+                     f"teacher forcing by more than {bound} of its norm (first: row {b}, "
+                     f"step {j + 1}: {float(rel[b, j + 1])})")
+    if not bool(torch.isfinite(want).all()) or not bool(torch.isfinite(got).all()):
+        fails.append(f"prompt {S}: non-finite logits")
+    return fails, summary
+
+
+def timed_moe_run(phase: str, cfg, bundle, params, batch: int, S: int, steps: int,
+                  label: str) -> dict:
+    """A prefill of batch x S tokens and ``steps`` decode steps through a
+    ServeEngine at ``cfg``'s capacity factor: walls, peak memory, the share
+    of routes dropped; then one decode step under torch.profiler, beside the
+    bytes it needs: the weights it multiplies (the experts its routes
+    select, not all E) and its cache up to its position."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.serving import ServeEngine
+
+    max_len = S + steps + 1
+    engine = ServeEngine(bundle, params, max_len=max_len, batch=batch, device="cuda")
+    tokens = np.random.default_rng(SEED + S).integers(0, cfg.vocab, (batch, S)).astype(np.int32)
+    engine.generate({"tokens": tokens}, max_new_tokens=2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with RouteLog() as rl:
+        res = engine.generate({"tokens": tokens}, max_new_tokens=steps + 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_moe = cfg.n_layers - min(cfg.n_dense_layers, cfg.n_layers)
+    C, C1 = moe.capacity(cfg, S), moe.capacity(cfg, 1)
+    pre = [(moe.positions(e, cfg.n_experts) >= C) for e in rl.calls[:n_moe]]
+    dec = [(moe.positions(e, cfg.n_experts) >= C1) for e in rl.calls[n_moe:]]
+    share = float(sum(int(d.sum()) for d in pre)) / max(1, sum(d.numel() for d in pre))
+    dec_share = float(sum(int(d.sum()) for d in dec)) / max(1, sum(d.numel() for d in dec))
+    step_s = res.decode_s / (res.steps - 1)
+    out = {"prefill_s": res.prefill_s, "decode_step_s": step_s, "peak_gib": peak,
+           "dropped_share": share, "decode_dropped_share": dec_share,
+           "dropped_by_layer": [float(d.float().mean()) for d in pre]}
+    log(f"phase {phase}: {label}: prefill of {batch} x {S} tokens at cf {cfg.capacity_factor} "
+        f"(C = {C}) {res.prefill_s:.6f} s ({batch * S / res.prefill_s:.1f} tok/s), routes "
+        f"dropped {share:.6f} (by MoE layer {', '.join(f'{v:.6f}' for v in out['dropped_by_layer'])}); "
+        f"{res.steps - 1} decode steps in {res.decode_s:.6f} s ({step_s * 1e3:.3f} ms a step, C = "
+        f"{C1}, routes dropped {dec_share:.6f}); peak device memory {peak:.3f} GiB")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cache = engine._cache0
+    tok = torch.as_tensor(tokens[:, -1:], dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        bundle.prefill(params, {"tokens": torch.as_tensor(tokens, dtype=torch.int64,
+                                                           device="cuda")}, cache)
+        bundle.decode_step(params, tok, cache, S)  # untraced, to warm the step
+        torch.cuda.synchronize()
+        with RouteLog() as step_routes, torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            bundle.decode_step(params, tok, cache, S + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    cache_bytes = 0
+    for seg in cache:
+        for unit in seg:
+            for t in unit.values():
+                check(max_len in t.shape, f"phase {phase}: a cache leaf {tuple(t.shape)} has "
+                      f"no axis of {max_len} positions")
+                cache_bytes += t.numel() * t.element_size() * (S + 2) // max_len
+                t.zero_()
+    # the weights a step multiplies: all but the MTP head and the (untied)
+    # embedding, of which it reads the batch's rows; of the routed experts
+    # those its routes select
+    check(not cfg.tie_embeddings, f"phase {phase}: {cfg.name} ties its embeddings")
+    expert = 3 * cfg.d_model * cfg.expert_d_ff * 2
+    all_experts = n_moe * cfg.n_experts * expert
+    weights = sum(t.numel() * t.element_size() for _, t in _leaves(
+        {k: v for k, v in params.items() if k not in ("mtp", "embed")}))
+    selected = [int(e.unique().numel()) for e in step_routes.calls]
+    check(len(selected) == n_moe, f"phase {phase}: the traced step routed {len(selected)} MoE "
+          f"layers, not {n_moe}")
+    needed = weights - all_experts + sum(selected) * expert + cache_bytes + batch * cfg.d_model * 2
+    bound = needed / HBM_BYTES_PER_S
+    log(f"phase {phase}: {label}: traced decode step (batch {batch}, position {S + 1}): "
+        f"{busy_share(prof, wall)}; kernel classes: {kernel_classes(prof)}. The bytes it needs: "
+        f"{needed / 1e9:.3f} GB ({(weights - all_experts) / 1e9:.3f} GB of weights but the "
+        f"routed experts, the {sum(selected)} experts its {batch} x {cfg.top_k} routes select "
+        f"({', '.join(map(str, selected))} of {cfg.n_experts} by MoE layer) "
+        f"{sum(selected) * expert / 1e9:.3f} GB, its cache up to the position "
+        f"{cache_bytes / 1e9:.3f} GB), {bound * 1e3:.3f} ms at 3.35 TB/s: the step is "
+        f"{wall / bound:.2f}x that bound, the untraced steps {step_s / bound:.2f}x. The dispatch runs all {cfg.n_experts} experts of "
+        f"each of the {n_moe} MoE layers (C = {C1} slot each): {all_experts / 1e9:.3f} GB of "
+        f"expert weights, {all_experts / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s, "
+        f"{(all_experts - sum(selected) * expert) / HBM_BYTES_PER_S * 1e3:.3f} ms over the "
+        "selected experts' read")
+    out.update(traced_step_s=wall, expert_gb=all_experts / 1e9, needed_gb=needed / 1e9,
+               selected_experts=selected, step_bound_s=bound)
+    del engine
+    return out
+
+
+def drive_deepseek(counters: "Counters") -> dict:
+    """Phase (m): DeepSeek-V3 at its published widths, 5 of its 61 layers
+    (3 dense MLA layers, 2 MLA + MoE layers, the MTP head's parameters),
+    drawn on the card.  The MoE layer against its plain sum at full width
+    (:func:`moe_layer_check`); two greedy requests of DS_BATCH x DS_PROMPT
+    tokens and DS_NEW new tokens, drop-free, one through each MLA cache form
+    (full, compressed), each held against teacher forcing
+    (:func:`moe_teacher_force`) and against each other; then, at the
+    published capacity factor, a timed prefill and decode steps in each cache
+    form, one decode step traced.  No kernel of the repo is on this path (MLA
+    takes the chunked softmax, as the JAX package does)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.serving import ServeEngine
+
+    S, new, batch = DS_PROMPT, DS_NEW, DS_BATCH
+    cfg, params = moe_model(DS_ARCH, DS_LAYERS, "m")
+    rng = np.random.default_rng(SEED)
+    out = {"layer": moe_layer_check(
+        "m", cfg, params,
+        torch.as_tensor(rng.integers(0, cfg.vocab, (1, DS_CHECK_TOKENS)), device="cuda"))}
+
+    prompt = rng.integers(0, cfg.vocab, (batch, S)).astype(np.int32)
+    fails, runs = [], {}
+    for form, compressed in (("full cache", False), ("compressed cache", True)):
+        free = drop_free(dataclasses.replace(cfg, mla_compressed_cache=compressed))
+        rec = LogitLog(get_model(free))
+        engine = ServeEngine(rec.bundle, params, max_len=S + new, batch=batch, device="cuda")
+        counters.zero()
+        with RouteLog() as rl:
+            res = engine.generate({"tokens": prompt}, max_new_tokens=new)
+        counters.read(f"phase m ({form})", ())
+        log(f"phase m: {form}: {batch} x {S} prompt tokens, {new} new, drop-free (cf "
+            f"{free.capacity_factor}): prefill {res.prefill_s:.6f} s, {res.steps - 1} decode "
+            f"steps in {res.decode_s:.6f} s")
+        f, summary = moe_teacher_force(f"m ({form})", free, params, prompt, res.tokens,
+                                       rec.logits, rl.calls)
+        fails += f
+        runs[form] = {"tokens": res.tokens, "logits": rec.logits, "teacher": summary}
+        del engine
+    a, b = runs["full cache"], runs["compressed cache"]
+    agree = int((a["tokens"] == b["tokens"]).all(0).cumprod().sum())  # steps before they part
+    gaps = [float(((x - y).norm(dim=-1) / y.norm(dim=-1)).max())
+            for x, y in zip(a["logits"][:agree + 1], b["logits"][:agree + 1])]
+    pre_gap = float((a["logits"][0] - b["logits"][0]).abs().max())
+    log(f"phase m: the two cache forms: greedy tokens equal for {agree} of {new} steps; "
+        f"prefill logits max abs {pre_gap:.6f}; decode logits ||full - compressed|| / "
+        f"||compressed|| over the steps with equal context: max {max(gaps[1:] or [0.0]):.6f}")
+    check(pre_gap <= MOE_TOL * (1 + float(b["logits"][0].abs().max())),
+          f"phase m: the cache forms' prefill logits differ by {pre_gap}")
+    check(not fails, "phase m: " + "; ".join(fails))
+    out["requests"] = {k: v["teacher"] for k, v in runs.items()}
+
+    t_batch, t_prompt, t_steps = DS_TIMED
+    for form, compressed in (("full cache", False), ("compressed cache", True)):
+        timed = dataclasses.replace(cfg, mla_compressed_cache=compressed)
+        counters.zero()
+        out[form] = timed_moe_run("m", timed, get_model(timed), params, t_batch, t_prompt,
+                                  t_steps, form)
+        counters.read(f"phase m (timed, {form})", ())
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_phi(counters: "Counters") -> dict:
+    """Phase (n): Phi-3.5-MoE at its published widths, 16 of its 32 layers
+    (GQA 32 / 8 heads of 128 and an MoE of 16 experts, top 2, in every
+    layer), drawn on the card.  The MoE layer against its plain sum; a
+    ServeEngine of batch PHI_BATCH answers greedy requests of PHI_NEW tokens
+    with prompts of 2048 tokens (its prefill takes the flash kernel: one
+    launch a layer) and 1000 (the chunked softmax), drop-free, each held
+    against teacher forcing (:func:`moe_teacher_force`); then one timed
+    prefill and decode at the published capacity factor."""
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.serving import ServeEngine
+
+    new, batch = PHI_NEW, PHI_BATCH
+    cfg, params = moe_model(PHI_ARCH, PHI_LAYERS, "n")
+    rng = np.random.default_rng(SEED)
+    out = {"layer": moe_layer_check(
+        "n", cfg, params,
+        torch.as_tensor(rng.integers(0, cfg.vocab, (1, DS_CHECK_TOKENS)), device="cuda"))}
+    free = drop_free(cfg)
+    rec = LogitLog(get_model(free))
+    engine = ServeEngine(rec.bundle, params, max_len=max(PHI_PROMPTS) + new, batch=batch,
+                         device="cuda")
+    engine.generate({"tokens": rng.integers(0, cfg.vocab, (batch, PHI_PROMPTS[0]))},
+                    max_new_tokens=2)  # warm-up
+    fails = []
+    for S in PHI_PROMPTS:
+        prompt = rng.integers(0, cfg.vocab, (batch, S)).astype(np.int32)
+        rec.logits.clear()
+        counters.zero()
+        with RouteLog() as rl:
+            res = engine.generate({"tokens": prompt}, max_new_tokens=new)
+        flash = S % 128 == 0
+        counts = counters.read(f"phase n (prompt {S})", ("flash_attention",) if flash else ())
+        want = cfg.n_layers if flash else 0
+        check(counts["flash_attention"] == want,
+              f"phase n: prompt {S} launched flash_attention {counts['flash_attention']} "
+              f"times, not {want}")
+        log(f"phase n: prompt {S}: {batch} x {S} tokens, {new} new, drop-free: prefill "
+            f"{res.prefill_s:.6f} s, {res.steps - 1} decode steps in {res.decode_s:.6f} s, "
+            f"flash_attention launches {counts['flash_attention']}")
+        f, summary = moe_teacher_force("n", free, params, prompt, res.tokens, rec.logits,
+                                       rl.calls)
+        fails += f
+        out[S] = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+                  "flash_launches": counts["flash_attention"], "teacher": summary}
+    del engine
+    check(not fails, "phase n: " + "; ".join(fails))
+    counters.zero()
+    out["timed"] = timed_moe_run("n", cfg, get_model(cfg), params, batch, PHI_PROMPTS[0], new,
+                                 "published cf")
+    counters.read("phase n (timed)", ("flash_attention",))
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------- (k) training
@@ -2450,6 +3044,8 @@ def main(argv=None) -> int:
         phase("i", drive_service, Path(tmp) / "service", counters)
         phase("l", drive_checkpoint_loop, Path(tmp) / "train_loop", counters)
     phase("h", drive_serving, counters)
+    phase("m", drive_deepseek, counters)
+    phase("n", drive_phi, counters)
     with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
         phase("k", drive_training, Path(tmp), counters)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")

@@ -1,5 +1,6 @@
-"""Dense decoder LMs in PyTorch: a copy of ``repro.models`` for the
-all-attention families, with the JAX package's parameter tree."""
+"""Decoder LMs in PyTorch: a copy of ``repro.models`` for the attention
+families (dense GQA, MoE, DeepSeek's MLA and MTP head), with the JAX
+package's parameter tree."""
 
 from .registry import ModelBundle, count_params, get_model
 

@@ -1,21 +1,32 @@
-"""GQA attention (with qk-norm), as ``repro.models.attention`` has it.
+"""Attention blocks: GQA (with qk-norm) and MLA (DeepSeek), as
+``repro.models.attention`` has them.
 
-Three paths share the parameters:
+Each block has three paths sharing its parameters:
 
-* ``gqa_forward(cfg, p, x)``              — teacher forcing (no cache);
-* ``gqa_prefill(cfg, p, x, cache)``       — fills the decode cache;
-* ``gqa_decode(cfg, p, x, cache, pos)``   — one token against the cache.
+* ``forward(cfg, p, x)``              — teacher forcing (no cache);
+* ``prefill(cfg, p, x, cache)``       — fills the decode cache;
+* ``decode(cfg, p, x, cache, pos)``   — one token against the cache.
 
-Cache layout: ``{"k": (B, S_max, KV, hd), "v": ...}``.  Unlike the JAX
-package, which returns a new cache, prefill and decode write into the
-caller's cache in place (it is the engine's own buffer) and return it.
+Cache layouts:
 
-The sliding window (``window``), cross-attention (``cross_kv``) and MLA wait
-for the hybrid, enc-dec and MoE/MLA families (ROADMAP Queue 1) and raise.
+* GQA: ``{"k": (B, S_max, KV, hd), "v": ...}``;
+* MLA: the full cache ``{"k": (B, S_max, H, nd + rd), "v": (B, S_max, H,
+  vd)}``, or with ``mla_compressed_cache`` the latent ``{"ckv": (B, S_max,
+  kv_lora + rope_dim)}``, whose decode attends in the latent space with the
+  up-projections absorbed into the query and the output.
+
+Unlike the JAX package, which returns a new cache, prefill and decode write
+into the caller's cache in place (it is the engine's own buffer) and return
+it.  MLA never takes the flash kernel: the JAX package calls the chunked
+softmax directly there (q's head dim, nd + rd, differs from v's).
+
+The sliding window (``window``) and cross-attention (``cross_kv``) wait for
+the hybrid and enc-dec families (ROADMAP Queue 1) and raise.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -109,4 +120,122 @@ def gqa_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Dict,
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
     o = chunked_attention(q, cache["k"], cache["v"], causal=False, kv_len=pos + 1)
+    return _out_proj(cfg, p, o), cache
+
+
+# ===================================================================== MLA ==
+def _mla_dims(cfg: ModelConfig):
+    return (cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank,
+            cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim)
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def mla_project_q(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
+    """(q_nope (B, S, H, nd), q_rope (B, S, H, rd)), the rotary part rotated."""
+    B, S, _ = x.shape
+    H, qr, kvr, rd, nd, vd = _mla_dims(cfg)
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"].reshape(qr, H * (nd + rd))).reshape(B, S, H, nd + rd)
+    cos, sin = rope_table(positions, rd, cfg.rope_theta)
+    return q[..., :nd], apply_rope(q[..., nd:], cos, sin)
+
+
+def _mla_latent(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
+    """(ckv (B, S, kvr) normed, k_rope (B, S, rd) rotated): what the
+    compressed cache holds, and what the full form expands."""
+    H, qr, kvr, rd, nd, vd = _mla_dims(cfg)
+    ckv_full = x @ p["wkv_a"]                               # (B, S, kvr + rd)
+    ckv = rms_norm(ckv_full[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    cos, sin = rope_table(positions, rd, cfg.rope_theta)
+    # one rotary key shared across the heads
+    k_rope = apply_rope(ckv_full[..., None, kvr:], cos, sin)[..., 0, :]
+    return ckv, k_rope
+
+
+def mla_project_kv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
+    """(k (B, S, H, nd + rd), v (B, S, H, vd)): the expanded (full) form."""
+    B, S, _ = x.shape
+    H, qr, kvr, rd, nd, vd = _mla_dims(cfg)
+    ckv, k_rope = _mla_latent(cfg, p, x, positions)
+    kv = (ckv @ p["wkv_b"].reshape(kvr, H * (nd + vd))).reshape(B, S, H, nd + vd)
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)], dim=-1)
+    return k, v
+
+
+def _mla_attend_full(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
+    """Causal attention of ``x`` over itself; also returns its (k, v)."""
+    q_nope, q_rope = mla_project_q(cfg, p, x, positions)
+    k, v = mla_project_kv(cfg, p, x, positions)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = chunked_attention(q, k, v, causal=True, softmax_scale=_mla_scale(cfg))
+    return _out_proj(cfg, p, o), k, v
+
+
+def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions=None) -> torch.Tensor:
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _mla_attend_full(cfg, p, x, positions)[0]
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device="cuda") -> Dict:
+    H, qr, kvr, rd, nd, vd = _mla_dims(cfg)
+    if cfg.mla_compressed_cache:
+        return {"ckv": torch.zeros((batch, max_len, kvr + rd), dtype=dtype, device=device)}
+    return {
+        "k": torch.zeros((batch, max_len, H, nd + rd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, H, vd), dtype=dtype, device=device),
+    }
+
+
+def mla_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    out, k, v = _mla_attend_full(cfg, p, x, positions)
+    if cfg.mla_compressed_cache:
+        ckv, k_rope = _mla_latent(cfg, p, x, positions)
+        cache["ckv"][:, :S] = torch.cat([ckv, k_rope], dim=-1)
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    return out, cache
+
+
+def mla_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Dict,
+               pos: int) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, 1, D); pos: the current position (tokens in the cache)."""
+    H, qr, kvr, rd, nd, vd = _mla_dims(cfg)
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = mla_project_q(cfg, p, x, positions)
+    if cfg.mla_compressed_cache:
+        # absorbed-weight decode: attend in the kvr-wide latent space, in f32
+        ckv, k_rope = _mla_latent(cfg, p, x, positions)
+        cache["ckv"][:, pos] = torch.cat([ckv, k_rope], dim=-1)[:, 0]
+        wkv_b = p["wkv_b"].reshape(kvr, H, nd + vd)
+        w_k_nope, w_v = wkv_b[..., :nd], wkv_b[..., nd:]
+        # fold W^UK into q: q_lat (B, 1, H, kvr), a bf16 product
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_k_nope)
+        ck = cache["ckv"].float()                           # (B, S_max, kvr + rd)
+        scores = (
+            torch.einsum("bshr,btr->bsht", q_lat.float(), ck[..., :kvr])
+            + torch.einsum("bshk,btk->bsht", q_rope.float(), ck[..., kvr:])
+        ) / math.sqrt(nd + rd)
+        t_pos = torch.arange(ck.shape[1], device=x.device)
+        scores = torch.where(t_pos <= pos, scores, -1e30)
+        w = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bsht,btr->bshr", w, ck[..., :kvr])    # (B, 1, H, kvr)
+        o = torch.einsum("bshr,rhv->bshv", o_lat, w_v.float()).to(x.dtype)
+    else:
+        k, v = mla_project_kv(cfg, p, x, positions)
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        o = chunked_attention(q, cache["k"], cache["v"], causal=False, kv_len=pos + 1,
+                              softmax_scale=_mla_scale(cfg))
     return _out_proj(cfg, p, o), cache

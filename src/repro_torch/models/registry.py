@@ -1,13 +1,15 @@
 """Arch registry: one ModelBundle API, as ``repro.models.registry`` has it.
 
-``get_model(cfg)`` returns a bundle of plain functions that the server (and
-later the trainer) share.  Batches are ``{"tokens": (B, S) integer}``.  The
-port runs decoder configs whose blocks are all ``attn`` with a dense MLP;
-the other families raise and name their ROADMAP item.  Sharding axes
+``get_model(cfg)`` returns a bundle of plain functions that the server and
+the trainer share.  Batches are ``{"tokens": (B, S) integer}``.  The port
+runs decoder configs of ``attn`` (GQA) and ``mla`` blocks, each with a dense
+MLP or an MoE (``moe_impl="dispatch"``); the other families raise and name
+their ROADMAP item.  Sharding axes
 (``param_axes`` / ``cache_axes``) wait for the mesh tooling.
 
 ``count_params`` derives N (total and active) analytically from the config,
-a copy of the JAX package's.
+a copy of the JAX package's, which counts DeepSeek's MTP block as a GQA
+block though it is an MLA block (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -31,25 +33,17 @@ class ModelBundle:
     decode_step: Callable[..., Any]      # (params, token, cache, pos) -> ...
 
 
-def _unported(cfg: ModelConfig) -> str:
-    """The reason the port cannot run ``cfg`` yet, or ''."""
-    if cfg.is_encdec:
-        return "encoder-decoder models wait for the enc-dec family"
-    if cfg.n_experts:
-        return "MoE models wait for the MoE family"
-    kinds = sorted(set(cfg.blocks()) - {"attn"})
-    if kinds:
-        return f"{'/'.join(kinds)} blocks wait for their family"
-    return ""
-
-
 def get_model(cfg: ModelConfig) -> ModelBundle:
-    why = _unported(cfg)
-    if why:
+    """The bundle of ``cfg``; a family the port does not run yet raises
+    ``NotImplementedError`` naming its ROADMAP item (enc-dec, the recurrent
+    blocks, the expert-parallel MoE)."""
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: {why} (ROADMAP Queue 1, other model families); the "
-            "port runs dense decoder LMs"
-        )
+            f"{cfg.name}: encoder-decoder models wait for the enc-dec family (ROADMAP "
+            "Queue 1, other model families)")
+    for seg in tf.segments(cfg):
+        for kind, use_moe in seg.unit:
+            tf.check_kind(cfg, kind, use_moe)
     return ModelBundle(
         cfg=cfg,
         init=lambda generator, device="cuda": tf.init_params(cfg, generator, device),

@@ -1,18 +1,22 @@
-"""Decoder LM spine, as ``repro.models.transformer`` has it, for dense
-attention blocks.
+"""Decoder LM spine, as ``repro.models.transformer`` has it, for the
+attention families: GQA and MLA blocks, each with a dense MLP or an MoE.
 
-Layers are partitioned into **segments**: maximal runs of a repeating unit.
-Each segment stacks its parameters over the repeat axis, exactly as the JAX
-package's parameter tree does (``params["segments"][i][j][name]`` has the
-repeat count first); where JAX scans a segment, the port loops over the
-stack index in Python.  In training (``mode="train"`` under autograd) each
-layer runs inside ``torch.utils.checkpoint``, the JAX package's default
-``full`` remat policy: only each layer's input is kept, and the layer is
-recomputed in the backward pass.  The ``REPRO_REMAT_POLICY=dots`` knob has no
-counterpart yet (ROADMAP Queue 1).
+Layers are partitioned into **segments**: maximal runs of a repeating unit
+(e.g. DeepSeek's 3 dense + 58 MoE split).  Each segment stacks its
+parameters over the repeat axis, exactly as the JAX package's parameter tree
+does (``params["segments"][i][j][name]`` has the repeat count first); where
+JAX scans a segment, the port loops over the stack index in Python.  In
+training (``mode="train"`` under autograd) each layer runs inside
+``torch.utils.checkpoint``, the JAX package's default ``full`` remat policy:
+only each layer's input is kept, and the layer is recomputed in the backward
+pass.  The ``REPRO_REMAT_POLICY=dots`` knob has no counterpart yet (ROADMAP
+Queue 1).
 
-Block kinds: ``attn`` (GQA) with a dense MLP.  ``mla``, ``rglru``, ``rwkv``
-and MoE MLPs wait for their families (ROADMAP Queue 1) and raise.
+Block kinds: ``attn`` (GQA) and ``mla`` (DeepSeek), paired with an MLP or
+an MoE (``cfg.layer_uses_moe``).  With ``cfg.mtp`` the tree has DeepSeek's
+multi-token-prediction head (``mtp``), whose hidden states the forward pass
+returns in its aux.  ``rglru`` and ``rwkv`` wait for their families and the
+expert-parallel MoE for the pod tooling (ROADMAP Queue 1) and raise.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels import resolve_device
 from . import attention as attn_lib
+from . import moe as moe_lib
 from .layers import Params, mlp_gelu, mlp_swiglu, rms_norm
 
 
@@ -63,60 +68,94 @@ def segments(cfg: ModelConfig) -> List[Segment]:
     return segs
 
 
-def _check_kind(cfg: ModelConfig, kind: str, use_moe: bool) -> None:
-    if kind != "attn" or use_moe:
-        what = "MoE MLPs" if use_moe else f"{kind!r} blocks"
+def check_kind(cfg: ModelConfig, kind: str, use_moe: bool) -> None:
+    """Raise ``NotImplementedError``, naming its ROADMAP item, for a block
+    the port does not run yet."""
+    if kind not in ("attn", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: {what} wait for their model family (ROADMAP Queue 1, "
-            "other model families); the port runs attention blocks with a dense MLP"
-        )
+            f"{cfg.name}: {kind!r} blocks wait for their model family (ROADMAP Queue 1, "
+            "other model families); the port runs attention and MLA blocks")
+    if use_moe and cfg.moe_impl == "ep":
+        raise NotImplementedError(
+            f"{cfg.name}: the expert-parallel MoE (moe_impl='ep') waits for the pod "
+            "tooling (ROADMAP Queue 1 item 7); the port runs moe_impl='dispatch'")
 
 
 # ---------------------------------------------------------------- block init
+DRAW_CHUNK = 1 << 26  # elements drawn at a time: a leaf's f32 draw stays small
+
+
 def _nrm(gen: torch.Generator, shape, std, device, dtype=torch.bfloat16) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * std).to(dtype)
+    """Normal(0, std) in ``dtype``, drawn in f32 ``DRAW_CHUNK`` elements at a
+    time, so that a leaf of billions of elements (DeepSeek's stacked experts)
+    never holds an f32 copy of itself; a smaller leaf is one draw."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), DRAW_CHUNK):
+        n = min(DRAW_CHUNK, flat.numel() - i)
+        flat[i:i + n] = (torch.randn(n, generator=gen, dtype=torch.float32, device=device)
+                         * std).to(dtype)
+    return out
 
 
 def block_spec(cfg: ModelConfig, kind: str, use_moe: bool,
                *, repeats: Optional[int] = None) -> Dict[str, Any]:
-    """One block's parameters as ``name -> (shape, std)``, ``std`` None for
-    the zero-initialised norm scales; ``repeats`` of them stacked on a
-    leading axis.  The shapes and stds are those of the JAX package's
-    ``block_init``; every leaf is bf16."""
-    _check_kind(cfg, kind, use_moe)
+    """One block's parameters as ``name -> (shape, std, dtype)``, ``std``
+    None for the zero-initialised norm scales; ``repeats`` of them stacked
+    on a leading axis.  The shapes, stds and dtypes are those of the JAX
+    package's ``block_init``: bf16, but for the MoE router's f32."""
+    check_kind(cfg, kind, use_moe)
     D, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     std = 0.02
     out_std = std / max(1, cfg.n_layers) ** 0.5
     lead = () if repeats is None else (repeats,)
-    spec: Dict[str, Any] = {
-        "norm1": (lead + (D,), None),
-        "wq": (lead + (D, H, hd), std),
-        "wk": (lead + (D, KV, hd), std),
-        "wv": (lead + (D, KV, hd), std),
-        "wo": (lead + (H, hd, D), out_std),
-    }
-    if cfg.qk_norm:
-        spec["q_norm"] = (lead + (hd,), None)
-        spec["k_norm"] = (lead + (hd,), None)
-    spec["norm2"] = (lead + (D,), None)
+    bf16 = torch.bfloat16
+
+    def leaf(shape, s=None, dtype=bf16):
+        return (lead + tuple(shape), s, dtype)
+
+    spec: Dict[str, Any] = {"norm1": leaf((D,))}
+    if kind == "attn":
+        spec.update(wq=leaf((D, H, hd), std), wk=leaf((D, KV, hd), std),
+                    wv=leaf((D, KV, hd), std), wo=leaf((H, hd, D), out_std))
+        if cfg.qk_norm:
+            spec["q_norm"] = leaf((hd,))
+            spec["k_norm"] = leaf((hd,))
+    else:  # mla
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        rd, nd, vd = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
+        spec.update(
+            wq_a=leaf((D, qr), std), q_norm=leaf((qr,)), wq_b=leaf((qr, H, nd + rd), std),
+            wkv_a=leaf((D, kvr + rd), std), kv_norm=leaf((kvr,)),
+            wkv_b=leaf((kvr, H, nd + vd), std), wo=leaf((H, vd, D), out_std),
+        )
+    spec["norm2"] = leaf((D,))
+    if use_moe:
+        E, Fe = cfg.n_experts, cfg.expert_d_ff
+        spec["moe"] = {
+            "router": leaf((D, E), std, torch.float32),
+            "w_gate": leaf((E, D, Fe), std),
+            "w_up": leaf((E, D, Fe), std),
+            "w_down": leaf((E, Fe, D), out_std),
+        }
+        if cfg.n_shared_experts:
+            Fs = Fe * cfg.n_shared_experts
+            spec["moe"].update(shared_w_gate=leaf((D, Fs), std),
+                               shared_w_up=leaf((D, Fs), std),
+                               shared_w_down=leaf((Fs, D), std))
+        return spec
     F = cfg.d_ff
     if cfg.mlp_kind == "swiglu":
-        spec["mlp"] = {
-            "w_gate": (lead + (D, F), std),
-            "w_up": (lead + (D, F), std),
-            "w_down": (lead + (F, D), out_std),
-        }
+        spec["mlp"] = {"w_gate": leaf((D, F), std), "w_up": leaf((D, F), std),
+                       "w_down": leaf((F, D), out_std)}
     else:
-        spec["mlp"] = {
-            "w_in": (lead + (D, F), std),
-            "w_out": (lead + (F, D), out_std),
-        }
+        spec["mlp"] = {"w_in": leaf((D, F), std), "w_out": leaf((F, D), out_std)}
     return spec
 
 
 def _spec_map(fn, spec: Any) -> Any:
-    """``fn`` applied to every ``(shape, std)`` leaf of a spec, in its
+    """``fn`` applied to every ``(shape, std, dtype)`` leaf of a spec, in its
     insertion order (the order the leaves are drawn in)."""
     if isinstance(spec, dict):
         return {k: _spec_map(fn, v) for k, v in spec.items()}
@@ -128,8 +167,9 @@ def _spec_map(fn, spec: Any) -> Any:
 def _draw(spec: Any, generator: torch.Generator, device) -> Any:
     """A spec's leaves drawn on ``device``: zeros where ``std`` is None."""
     return _spec_map(
-        lambda shape, std: (torch.zeros(shape, dtype=torch.bfloat16, device=device)
-                            if std is None else _nrm(generator, shape, std, device)),
+        lambda shape, std, dtype: (torch.zeros(shape, dtype=dtype, device=device)
+                                   if std is None
+                                   else _nrm(generator, shape, std, device, dtype)),
         spec)
 
 
@@ -154,49 +194,67 @@ def block_apply(
     pos: int = 0,
     window: int = 0,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    _check_kind(cfg, kind, use_moe)
+    check_kind(cfg, kind, use_moe)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache: Optional[Dict] = None
-    w = window or cfg.attn_window
-    if mode == "train":
-        a = attn_lib.gqa_forward(cfg, p, h, window=w)
+    if kind == "attn":
+        w = window or cfg.attn_window
+        if mode == "train":
+            a = attn_lib.gqa_forward(cfg, p, h, window=w)
+        elif mode == "prefill":
+            a, new_cache = attn_lib.gqa_prefill(cfg, p, h, cache, window=w)
+        else:
+            a, new_cache = attn_lib.gqa_decode(cfg, p, h, cache, pos, window=w)
+    elif mode == "train":
+        a = attn_lib.mla_forward(cfg, p, h)
     elif mode == "prefill":
-        a, new_cache = attn_lib.gqa_prefill(cfg, p, h, cache, window=w)
+        a, new_cache = attn_lib.mla_prefill(cfg, p, h, cache)
     else:
-        a, new_cache = attn_lib.gqa_decode(cfg, p, h, cache, pos, window=w)
+        a, new_cache = attn_lib.mla_decode(cfg, p, h, cache, pos)
     x = x + a
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if use_moe:
+        return x + moe_lib.moe_block(cfg, p["moe"], h2), new_cache
     mlp = mlp_swiglu if cfg.mlp_kind == "swiglu" else mlp_gelu
     return x + mlp(h2, p["mlp"]), new_cache
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      *, window: int = 0, device="cuda") -> Dict:
-    _check_kind(cfg, kind, False)
+    check_kind(cfg, kind, False)
+    if kind == "mla":
+        return attn_lib.mla_init_cache(cfg, batch, max_len, device=device)
     w = window or (cfg.attn_window if len(cfg.layer_pattern) > 1 else 0)
     return attn_lib.gqa_init_cache(cfg, batch, max_len, window=w, device=device)
 
 
 # ------------------------------------------------------------------- the LM
 def param_spec(cfg: ModelConfig) -> Params:
-    """The parameter tree as ``(shape, std)`` leaves (``std`` None: zeros):
-    ``embed``, ``final_norm``, ``lm_head`` unless tied, ``segments``."""
+    """The parameter tree as ``(shape, std, dtype)`` leaves (``std`` None:
+    zeros): ``embed``, ``final_norm``, ``lm_head`` unless tied, ``segments``,
+    and with ``cfg.mtp`` the MTP head, ``mtp: {proj (2D, D), block}``, whose
+    block is of the last layer's kind with a dense MLP."""
     D, V = cfg.d_model, cfg.padded_vocab
-    spec: Params = {"embed": ((V, D), 0.02), "final_norm": ((D,), None)}
+    bf16 = torch.bfloat16
+    spec: Params = {"embed": ((V, D), 0.02, bf16), "final_norm": ((D,), None, bf16)}
     if not cfg.tie_embeddings:
-        spec["lm_head"] = ((D, V), 0.02)
+        spec["lm_head"] = ((D, V), 0.02, bf16)
     spec["segments"] = [
         [block_spec(cfg, kind, use_moe, repeats=seg.repeats) for kind, use_moe in seg.unit]
         for seg in segments(cfg)
     ]
+    if cfg.mtp:
+        spec["mtp"] = {"proj": ((2 * D, D), 0.02, bf16),
+                       "block": block_spec(cfg, cfg.blocks()[-1], False)}
     return spec
 
 
-def param_shapes(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16) -> Params:
+def param_shapes(cfg: ModelConfig, dtype: Optional[torch.dtype] = None) -> Params:
     """The parameter tree as ``(shape, dtype)`` leaves, from the shapes
-    alone (a restore template that allocates nothing); the params are bf16,
-    their optimizer moments f32."""
-    return _spec_map(lambda shape, std: (shape, dtype), param_spec(cfg))
+    alone (a restore template that allocates nothing): each leaf's own dtype
+    (bf16; the MoE router f32), or ``dtype`` for every leaf (the optimizer
+    moments, f32)."""
+    return _spec_map(lambda shape, std, own: (shape, dtype or own), param_spec(cfg))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Params:
@@ -256,17 +314,30 @@ def lm_logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                    inputs_embeds: Optional[torch.Tensor] = None):
-    """Final hidden states (B, S, D) and an empty aux dict (no MTP head)."""
+    """Final hidden states (B, S, D) and aux: with an MTP head,
+    ``mtp_hidden`` (B, S - 1, D), the head's hidden states for token t + 2
+    from (h_t, emb(token_{t+1}))."""
     x = inputs_embeds if inputs_embeds is not None else embed_tokens(cfg, params, tokens)
     x, _ = _run_segments(cfg, params, x, mode="train")
-    return x, {}
+    aux = {}
+    if cfg.mtp and "mtp" in params:
+        emb_next = embed_tokens(cfg, params, tokens)[:, 1:]
+        h_mtp = torch.cat([x[:, :-1], emb_next], dim=-1) @ params["mtp"]["proj"]
+        h_mtp, _ = block_apply(cfg, cfg.blocks()[-1], False, params["mtp"]["block"], h_mtp,
+                               mode="train")
+        aux["mtp_hidden"] = h_mtp
+    return x, aux
 
 
 def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                   inputs_embeds: Optional[torch.Tensor] = None):
-    """Teacher-forcing logits (B, S, V) and aux; tokens (B, S) integer."""
-    x, _ = forward_hidden(cfg, params, tokens, inputs_embeds=inputs_embeds)
-    return lm_logits(cfg, params, x), {}
+    """Teacher-forcing logits (B, S, V) and aux (``mtp_logits`` with an MTP
+    head); tokens (B, S) integer."""
+    x, aux_h = forward_hidden(cfg, params, tokens, inputs_embeds=inputs_embeds)
+    aux = {}
+    if "mtp_hidden" in aux_h:
+        aux["mtp_logits"] = lm_logits(cfg, params, aux_h["mtp_hidden"])
+    return lm_logits(cfg, params, x), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> list:

@@ -15,9 +15,10 @@ donated state).  Features:
 
 The step launches no hand-written kernel: attention under autograd takes the
 chunked softmax, as the JAX package's training does
-(``models.attention._full_attention``).  DeepSeek's MTP loss waits for the
-MTP head (ROADMAP Queue 1, other model families); ``mtp_weight`` is kept so
-the configs match.
+(``models.attention._full_attention``).  DeepSeek's MTP loss, and training
+the MoE and MLA families, wait for their slice (ROADMAP Queue 1, other model
+families): the loss raises on an aux holding ``mtp_hidden`` rather than drop
+that term.  ``mtp_weight`` is kept so the configs match.
 """
 
 from __future__ import annotations
@@ -95,7 +96,11 @@ def chunked_cross_entropy(head_fn, params, hidden: torch.Tensor,
 
 def make_loss_fn(bundle: ModelBundle, tcfg: TrainConfig):
     def loss_fn(params, batch):
-        hidden, _aux = bundle.train_hidden(params, batch)
+        hidden, aux = bundle.train_hidden(params, batch)
+        if "mtp_hidden" in aux:
+            raise NotImplementedError(
+                f"{bundle.cfg.name}: the MTP loss waits for its slice (ROADMAP Queue 1, "
+                "other model families); the loss would drop it")
         tokens = batch["tokens"]
         return chunked_cross_entropy(
             bundle.head, params, hidden[:, :-1], tokens[:, 1:], tcfg.z_loss

@@ -126,6 +126,15 @@ def test_serve_driver_runs_on_cpu(capsys):
     assert lines[1].startswith("[serve] sample tokens:")
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b"])
+def test_serve_driver_runs_moe_archs_on_cpu(capsys, arch):
+    serve.main(["--device", "cpu", "--arch", arch, "--batch", "2", "--prompt-len", "16",
+                "--max-new-tokens", "4"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"[serve] {arch}: prefill") and "CPU, reduced config" in lines[0]
+    assert lines[1].startswith("[serve] sample tokens:")
+
+
 def test_cuda_default_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs")

@@ -84,6 +84,15 @@ class TestDriver:
             train(RunConfig(steps=1, ckpt_dir=str(tmp_path)))
 
 
+    @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b"])
+    def test_moe_and_mla_families_do_not_train_yet(self, tmp_path, arch):
+        """They serve; their training (MoE and MLA backward, the MTP loss)
+        waits for its slice, and the driver says so before it draws a
+        parameter."""
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            train(RunConfig(arch=arch, steps=1, ckpt_dir=str(tmp_path)), device="cpu")
+
+
 class TestHostTopology:
     def test_rebalance_after_failure(self):
         topo = HostTopology(["h0", "h1", "h2", "h3"])
