@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA) and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent) and training paths on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -91,7 +91,7 @@ use (into ``build/``).  Phases:
     prompts of 2048, 1152 and 1000 tokens, which must launch the kernel 32,
     32 and 0 times (one prefill each; decode and the prompt that is not a
     multiple of 128 take the chunked softmax).  Each request is held against
-    teacher forcing (see ``teacher_force``), and one prefill and one decode
+    teacher forcing (see ``hold_to_teacher``), and one prefill and one decode
     step run under torch.profiler.
 
 (i) The dataset service.  A ``Repository`` on the card of 64 versions of
@@ -182,14 +182,43 @@ use (into ``build/``).  Phases:
     chunked softmax), drop-free, each held against teacher forcing as in
     (m); then a timed prefill of 4 x 2048 and 16 decode steps at cf 1.25,
     one decode step traced.  The flash launches of the phase are counted.
+(o) The recurrent families at their published widths and full depth, each
+    alone on the card, weights drawn there from a seeded generator (the tree
+    must number ``count_params``, plus for RWKV-6 the twelve D-vectors a
+    layer it leaves out, ROADMAP Queue 3).  RecurrentGemma-9B (38 layers:
+    12 x (RG-LRU, RG-LRU, local attention) + 2 RG-LRU, d 4096, lru width
+    4096, 16 heads over 1 KV head of 256, window 2048, d_ff 12288, vocab
+    256,000; 7.660 B): the RG-LRU scan on a real layer input against a
+    sequential f64 recurrence; a windowed attention layer at its real input,
+    whose 3072-token prefill and each of 16 decode steps after it must leave
+    every position q of the window at ring slot q % W bit for bit (its
+    outputs printed beside the windowed forward's, and the first step's
+    beside the same step on the ring laid out as the JAX package lays it;
+    at W = 2048 those gaps are rounding either way); then a ServeEngine
+    of batch 4 answers greedy requests of 16 new tokens with prompts of 2048
+    (= W) and 3072 tokens (3072 % 2048 = 1024: the layout the reference gets
+    wrong).  RWKV-6 3B (32 layers, d 2560, 40 heads of 64, d_ff 8960, vocab
+    65,536; 3.0995 B): the chunked WKV against the sequential scan on a real
+    layer input; requests of 1024 tokens through the scan form and 2048
+    through the chunked form, whose prefill logits are held against the scan
+    form's on the same prompt within FORMS_TOL of their norm, and the chunked
+    form with a planted fault (its bonus term u left out) must land above
+    that limit.  Each request is held against teacher forcing
+    (``hold_to_teacher``: the prefill at 2e-2 against a teacher over the
+    prompt alone, each decode step within 5e-2 or twice the gap of two
+    routes to the same logits: the RG-LRU stepped sequentially, or the other
+    WKV form); it prints each request's prefill wall, 16 decode steps,
+    peak memory and flash launches (0: the hybrid's attention is windowed at
+    hd 256, RWKV has none), and one traced decode step beside the bytes it
+    needs (every weight but the embedding table, the ring or state).
 
 Phases (e) and (h)'s kernel checks run right after (a), so that every
 kernel is checked before the main path starts.  The launch counters of the
 kernels are set to 0 before each main-path phase and read after it; a
 kernel its phase should use that launched no time fails the run, as does
 any mismatch.  Phases (b), (c), (f), (g), (i), (j), (l), (h)'s requests,
-(m), (n) and (k) are the main path ((j) runs after (d), on (b)'s ground
-truth; (m), (n) and (k) run last, each alone on the card's memory); the
+(m), (n), (o) and (k) are the main path ((j) runs after (d), on (b)'s ground
+truth; (m), (n), (o) and (k) run last, each alone on the card's memory); the
 launches of
 the kernel checks, which compare kernels with their plain versions, are not
 counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
@@ -232,7 +261,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefghijklmn"
+PHASES = "abcdefghijklmno"
 
 
 def log(msg: str) -> None:
@@ -1934,20 +1963,9 @@ def drive_serving(counters: "Counters", device: str = "cuda", cfg=None,
     check(n_params - n_norms == count_params(cfg),  # it counts no norm scales
           "phase h: parameter count differs from count_params")
 
-    recorded = []  # the logits of the prefill and the first two decode steps
-
-    def record(fn):
-        def wrapped(*args):
-            logits, cache = fn(*args)
-            if len(recorded) < 3:
-                recorded.append(logits[:, -1].float().clone())
-            return logits, cache
-        return wrapped
-
-    engine = ServeEngine(
-        dataclasses.replace(bundle, prefill=record(bundle.prefill),
-                            decode_step=record(bundle.decode_step)),
-        params, max_len=max(prompts) + SERVE_NEW, batch=SERVE_BATCH, device=device)
+    rec = LogitLog(bundle)  # the logits of the prefill and every decode step
+    engine = ServeEngine(rec.bundle, params, max_len=max(prompts) + SERVE_NEW,
+                         batch=SERVE_BATCH, device=device)
     rng = np.random.default_rng(SEED)
     prompt = lambda S: rng.integers(0, cfg.vocab, (SERVE_BATCH, S)).astype(np.int32)
     t0 = time.perf_counter()
@@ -1958,7 +1976,7 @@ def drive_serving(counters: "Counters", device: str = "cuda", cfg=None,
     fails = []
     for S in prompts:
         tokens = prompt(S)
-        recorded.clear()
+        rec.logits.clear()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         counters.zero()
@@ -1980,7 +1998,17 @@ def drive_serving(counters: "Counters", device: str = "cuda", cfg=None,
         out[S] = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
                   "decode_tok_s": decode_tps, "peak_gib": peak,
                   "flash_launches": counts["flash_attention"]}
-        fails += teacher_force(cfg, tf, params, tokens, res.tokens, recorded, S)
+        # two routes to the teacher's logits: over the tokens padded to a
+        # multiple of 128 (the flash kernel) and over them as they are (the
+        # chunked softmax); the prefill is held against its own route's
+        full = torch.cat([torch.as_tensor(tokens, dtype=torch.int64),
+                          torch.as_tensor(res.tokens[:, :-1], dtype=torch.int64)], 1).to(device)
+        n = full.shape[1]
+        flash = teacher_logits(cfg, tf, params, full, S, -(-n // 128) * 128)
+        chunked = teacher_logits(cfg, tf, params, full, S, n)
+        want, other = (flash, chunked) if S % 128 == 0 else (chunked, flash)
+        fails += hold_to_teacher("h", f"prompt {S}", rec.logits, res.tokens, want[:, 0], want,
+                                 other)[0]
 
     # one prefill and one decode step under the profiler
     tokens = torch.as_tensor(prompt(prompts[0]), dtype=torch.int64, device=device)
@@ -2038,59 +2066,65 @@ def teacher_logits(cfg, tf, params, tokens, S: int, length: int):
     return out[..., :cfg.vocab]
 
 
-def teacher_force(cfg, tf, params, prompt, generated, recorded, S) -> list:
-    """Hold one request against teacher forcing over its prompt and generated
-    tokens (never the whole (B, S, V) logits), through both attention routes:
-    over the tokens padded to a multiple of 128 (the flash kernel) and over
-    them as they are (S + 31: the chunked softmax).
-
-    The prefill's logits must equal the teacher's of the same route within
-    rtol = atol = 2e-2 (the reference test's tolerance; it is the same
-    arithmetic).  A decode step attends through the one-query softmax, which
-    rounds otherwise, and after 32 bf16 layers such a difference reaches a
-    few tenths of a logit (as far as the two teachers are from each other):
-    each of the first two decode steps must be within the reference test's
-    5e-2, or within twice the two teachers' own gap at that position (max
-    and mean abs).  Every greedy token must equal the teacher's argmax
-    wherever its top-2 margin exceeds twice the largest gap between the
-    teachers.  Returns the failures."""
+def hold_to_teacher(phase: str, label: str, recorded: list, generated, pre, want,
+                    other) -> tuple:
+    """Hold one request against teacher forcing (phases (h) and (o)): the
+    prefill's logits against ``pre`` (B, vocab), a teacher's at the prompt's
+    last position computed as the prefill computes it, at rtol = atol = 2e-2
+    (the reference test's tolerance; it is the same arithmetic).  A decode
+    step rounds otherwise, and through 30-odd bf16 layers such a difference
+    reaches a few tenths of a logit, as far as two routes to the same
+    logits part: each decode step must be within the reference test's 5e-2
+    of the teacher over the whole request (``want``, (B, new, vocab)), or
+    within twice the gap of the two routes (``want`` and ``other``) at that
+    position, max and mean.  Every greedy token must equal the teacher's
+    argmax where its top-2 margin exceeds twice both that gap and the step's
+    own difference, and every logit must be finite.  Returns (failures,
+    summary)."""
     import torch
 
-    full = torch.cat([torch.as_tensor(prompt, dtype=torch.int64),
-                      torch.as_tensor(generated[:, :-1], dtype=torch.int64)], 1)
-    full = full.to(params["embed"].device)
-    n = full.shape[1]
-    flash = teacher_logits(cfg, tf, params, full, S, -(-n // 128) * 128)
-    chunked = teacher_logits(cfg, tf, params, full, S, n)
-    same = flash if S % 128 == 0 else chunked
-    gap = (flash - chunked).abs()
+    got = torch.stack(recorded, dim=1)                       # (B, new, vocab)
     fails, report = [], []
-    for i, tol in enumerate((2e-2, 5e-2, 5e-2)):
-        diff = (recorded[i][:, :cfg.vocab] - same[:, i]).abs()
-        err, mean = float(diff.max()), float(diff.mean())
-        ratio = float((diff / (tol + tol * same[:, i].abs())).max())
+    pre_diff = (got[:, 0] - pre).abs()
+    pre_ratio = float((pre_diff / (2e-2 + 2e-2 * pre.abs())).max())
+    if pre_ratio > 1.0:
+        fails.append(f"{label}: prefill logits differ from the teacher by "
+                     f"{float(pre_diff.max())} (allclose ratio {pre_ratio} at 2e-2)")
+    diff, gap = (got - want).abs(), (want - other).abs()
+    worst = {"max_abs": 0.0, "ratio": 0.0}
+    for i in range(1, got.shape[1]):
+        err, mean = float(diff[:, i].max()), float(diff[:, i].mean())
+        ratio = float((diff[:, i] / (5e-2 + 5e-2 * want[:, i].abs())).max())
         floor, floor_mean = float(gap[:, i].max()), float(gap[:, i].mean())
-        report.append(f"step {i}: max abs {err:.6f} mean abs {mean:.6f} (allclose ratio "
-                      f"{ratio:.4f} at {tol}); teachers' gap max {floor:.6f} mean {floor_mean:.6f}")
-        within_floor = i > 0 and err <= 2 * floor and mean <= 2 * floor_mean
-        if ratio > 1.0 and not within_floor:
-            fails.append(f"prompt {S}: logits of step {i} differ from teacher forcing by "
-                         f"{err} (mean {mean}; allclose ratio {ratio} at rtol = atol = {tol}; "
-                         f"the teachers differ by {floor}, mean {floor_mean})")
-    top2 = same.topk(2, dim=-1).values
-    sure = (top2[..., 0] - top2[..., 1] > 2 * float(gap.max())).cpu().numpy()
-    teacher = same.argmax(dim=-1).cpu().numpy()
+        worst = {"max_abs": max(worst["max_abs"], err), "ratio": max(worst["ratio"], ratio)}
+        if ratio > 1.0 and not (err <= 2 * floor and mean <= 2 * floor_mean):
+            fails.append(f"{label}: decode step {i} differs from teacher forcing by {err} (mean "
+                         f"{mean}; allclose ratio {ratio} at 5e-2; the routes differ by {floor}, "
+                         f"mean {floor_mean})")
+        report.append(f"{err:.4f}/{floor:.4f}")
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    sure = (margin > 2 * torch.maximum(gap.amax(-1), diff.amax(-1))).cpu().numpy()
+    teacher = want.argmax(dim=-1).cpu().numpy()
     disagree = int((teacher[sure] != generated[sure]).sum())
     if disagree:
-        fails.append(f"prompt {S}: {disagree} greedy tokens differ from teacher forcing "
-                     "where its margin is clear")
-    if not bool(torch.isfinite(same).all()):
-        fails.append(f"prompt {S}: non-finite teacher logits")
-    log(f"phase h: prompt {S}: teacher forcing over {n} tokens; teachers' gap over all "
-        f"{same.shape[1]} positions max abs {float(gap.max()):.6f} mean abs "
-        f"{float(gap.mean()):.6f}; " + "; ".join(report) + f"; {int(sure.sum())} of "
-        f"{sure.size} tokens past the margin, {disagree} differ from the teacher's argmax")
-    return fails
+        fails.append(f"{label}: {disagree} greedy tokens differ from teacher forcing where its "
+                     "margin is clear")
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+        fails.append(f"{label}: non-finite logits")
+    summary = {"prefill_max_abs": float(pre_diff.max()), "prefill_ratio": pre_ratio,
+               "decode_max_abs": worst["max_abs"], "decode_ratio": worst["ratio"],
+               "route_gap_max": float(gap[:, 1:].max()), "route_gap_mean": float(gap[:, 1:].mean()),
+               "sure": int(sure.sum()), "disagree": disagree}
+    log(f"phase {phase}: {label}: prefill against the teacher max abs "
+        f"{summary['prefill_max_abs']:.6f} (allclose ratio {pre_ratio:.4f} at 2e-2); decode "
+        f"steps 1-{got.shape[1] - 1} against the request's teacher max abs "
+        f"{summary['decode_max_abs']:.6f} (allclose ratio {summary['decode_ratio']:.4f} at "
+        f"5e-2), the two routes' gap max {summary['route_gap_max']:.6f} mean "
+        f"{summary['route_gap_mean']:.6f}; max abs / route gap by step: {' '.join(report)}; "
+        f"{summary['sure']} of {sure.size} tokens past the margin, {disagree} differ from the "
+        "teacher's argmax")
+    return fails, summary
 
 
 # ------------------------------------------------------- (m), (n) MoE serving
@@ -2190,20 +2224,9 @@ def moe_layer_input(cfg, params, tokens):
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
 
-    seen, block = [], moe.moe_block
-
-    def capture(cfg_, p, x):
-        if not seen:
-            seen.append((p, x.clone()))
-        return block(cfg_, p, x)
-
-    moe.moe_block = capture
-    try:
-        with torch.no_grad():
-            tf.forward_hidden(cfg, params, tokens)
-    finally:
-        moe.moe_block = block
-    return seen[0]
+    with torch.no_grad(), Capture(moe, "moe_block") as block:
+        tf.forward_hidden(cfg, params, tokens)
+    return block.args[1], block.args[2]
 
 
 def moe_layer_check(phase: str, cfg, params, tokens) -> dict:
@@ -2651,6 +2674,450 @@ def drive_phi(counters: "Counters") -> dict:
     return out
 
 
+# ---------------------------------------------------- (o) recurrent families
+RG_ARCH = "recurrentgemma-9b"
+RG_PROMPTS = (2048, 3072)   # = W, and 3072 % 2048 = 1024: a prompt that wraps the ring
+RWKV_ARCH = "rwkv6-3b"
+RWKV_PROMPTS = ((1024, "scan"), (2048, "chunked"))
+REC_BATCH = 4
+REC_NEW = 16
+REC_WARMUP = 128   # a warm-up request's prompt, a multiple of the WKV chunk
+SCAN_TOL = 1e-5    # the RG-LRU scan against an f64 recurrence, ||d|| / ||ref||
+WKV_TOL = 1e-4     # the chunked WKV against the scan, ||d|| / ||scan||
+# The WKV forms' prefill logits, ||chunked - scan|| / ||scan|| a row.  The
+# forms agree to WKV_TOL at a layer; through 32 bf16 layers that difference
+# reaches 0.030436 of the logits' norm, and the chunked form with a planted
+# fault (the bonus term u left out, :func:`no_bonus`) 0.118830 (on an NVIDIA
+# H100 80GB HBM3, 700 W).  The limit is their geometric mean, a factor of 2
+# of room each side; the phase fails if the planted fault lands under it.
+FORMS_TOL = 0.06
+
+
+def recurrent_model(name: str):
+    """The published config of ``name`` at its full width and depth, its
+    parameters drawn on the card from a seeded generator; the tree must
+    number ``count_params``, plus the twelve D-vectors a layer it leaves out
+    for RWKV-6 (ROADMAP Queue 3)."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import count_params, get_model
+
+    cfg = ARCHS[name]
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED),
+                                 device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    n_norms = sum(t.numel() for name_, t in _leaves(params) if "norm" in name_)
+    pad = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    left_out = 12 * cfg.d_model * cfg.n_layers if "rwkv" in cfg.blocks() else 0
+    log(f"phase o: {cfg.name} at its published widths and depth ({cfg.n_layers} layers, "
+        f"pattern {'/'.join(cfg.layer_pattern)}, d {cfg.d_model}, {cfg.n_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}"
+        + (f", lru width {cfg.lru_width}, window {cfg.attn_window}, {cfg.n_kv_heads} KV "
+           f"head of {cfg.resolved_head_dim}" if cfg.lru_width else
+           f", heads of {cfg.rwkv_head_dim}, LoRA ranks {cfg.rwkv_shift_lora}/"
+           f"{cfg.rwkv_decay_lora}") +
+        f"): {n_params} parameters ({n_params - n_norms} but the norm scales; count_params "
+        f"{count_params(cfg)} + {left_out} left out), {n_params * 2 / 1e9:.3f} GB bf16, drawn "
+        f"on the card in {time.perf_counter() - t0:.3f} s")
+    check(n_params - n_norms == count_params(cfg) + pad + left_out,
+          f"phase o: {n_params - n_norms} parameters against count_params "
+          f"{count_params(cfg)} + {pad} padding + {left_out} left out")
+    return cfg, params
+
+
+class Capture:
+    """While active, keeps the arguments of the first call of ``module.name``
+    (as given) and lets every call through."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.args = module, name, None
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def wrapped(*args, **kw):
+            if self.args is None:
+                self.args = args
+            return self.fn(*args, **kw)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+class Swap:
+    """While active, ``recurrent.<name>`` is ``make(the function it
+    replaces)``."""
+
+    def __init__(self, name: str, make):
+        self.name, self.make = name, make
+
+    def __enter__(self):
+        from repro_torch.models import recurrent
+
+        self.fn = getattr(recurrent, self.name)
+        setattr(recurrent, self.name, self.make(self.fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import recurrent
+
+        setattr(recurrent, self.name, self.fn)
+
+
+def _sequential_scan(_):
+    """The RG-LRU's recurrence one step at a time in f32 (h_t = a_t *
+    h_{t-1} + bx_t, as a decode step runs it) in place of the associative
+    scan: a second route to the same logits."""
+    import torch
+
+    def scan(a, bx, h0):
+        h, hs = h0, []
+        for t in range(a.shape[1]):
+            h = a[:, t] * h + bx[:, t]
+            hs.append(h)
+        return torch.stack(hs, dim=1), h
+
+    return scan
+
+
+def sequential_scan() -> Swap:
+    return Swap("_rglru_scan", _sequential_scan)
+
+
+def no_bonus() -> Swap:
+    """A planted fault: the chunked WKV with its bonus term u (each token's
+    own k v) left out."""
+    import torch
+
+    return Swap("_wkv_chunked", lambda fn: lambda r, k, v, w, u, s0:
+                fn(r, k, v, w, torch.zeros_like(u), s0))
+
+
+def norm_ratio(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def rglru_scan_check(a, bx, h0) -> dict:
+    """The associative scan on a real layer input against the recurrence
+    run sequentially in f64."""
+    import torch
+
+    from repro_torch.models import recurrent
+
+    hh, last = recurrent._rglru_scan(a, bx, h0)
+    h, ref = h0.double(), []
+    a64, bx64 = a.double(), bx.double()
+    for t in range(a.shape[1]):
+        h = a64[:, t] * h + bx64[:, t]
+        ref.append(h)
+    ref = torch.stack(ref, dim=1)
+    out = {"max_abs": float((hh.double() - ref).abs().max()), "norm_ratio": norm_ratio(hh, ref),
+           "last_max_abs": float((last.double() - ref[:, -1]).abs().max())}
+    log(f"phase o: the RG-LRU scan on layer 0's input {tuple(a.shape)} against a sequential f64 "
+        f"recurrence: max abs {out['max_abs']:.9f}, ||d|| / ||ref|| {out['norm_ratio']:.3e}, "
+        f"last state max abs {out['last_max_abs']:.9f} (a in [{float(a.min()):.6f}, "
+        f"{float(a.max()):.6f}])")
+    check(out["norm_ratio"] <= SCAN_TOL, f"phase o: the RG-LRU scan is {out['norm_ratio']} of "
+          f"the f64 recurrence's norm from it (limit {SCAN_TOL})")
+    return out
+
+
+def wkv_forms_check(r, k, v, w, u, s0) -> dict:
+    """The chunked WKV on a real layer input against the sequential scan."""
+    from repro_torch.models import recurrent
+
+    out_c, s_c = recurrent._wkv_chunked(r, k, v, w, u, s0)
+    out_s, s_s = recurrent._wkv_scan(r, k, v, w, u, s0)
+    res = {"max_abs": float((out_c - out_s).abs().max()), "norm_ratio": norm_ratio(out_c, out_s),
+           "state_max_abs": float((s_c - s_s).abs().max()),
+           "state_norm_ratio": norm_ratio(s_c, s_s)}
+    log(f"phase o: the chunked WKV on layer 0's input {tuple(r.shape)} against the sequential "
+        f"scan: out max abs {res['max_abs']:.9f}, ||d|| / ||scan|| {res['norm_ratio']:.3e}; last "
+        f"state max abs {res['state_max_abs']:.9f}, ||d|| / ||scan|| "
+        f"{res['state_norm_ratio']:.3e} (decay in [{float(w.min()):.6f}, {float(w.max()):.6f}])")
+    check(max(res["norm_ratio"], res["state_norm_ratio"]) <= WKV_TOL,
+          f"phase o: the WKV forms differ by {res} (limit {WKV_TOL} of the norm)")
+    return res
+
+
+def ring_check(cfg, p, x, S: int) -> dict:
+    """One windowed attention layer at its real input ``x`` (B, S + n, D):
+    a prefill of S tokens, then n decode steps.  After the prefill and after
+    each step, every position q of the window (the last W up to the newest)
+    must sit at ring slot q % W, bit for bit against its k and v projected
+    as the call that wrote it projects them (the prompt's at once, each
+    decoded token alone): a wrong write slot or eviction fails it at any W.
+    Each step's output is printed beside the windowed forward's, and the
+    first step's also beside the same step on the ring laid out as the JAX
+    package's prefill lays it (the last W keys from slot 0): at W = 2048 one
+    misplaced key hides in the output's rounding, so those gaps are read,
+    not held."""
+    import torch
+
+    from repro_torch.models import attention
+
+    B, n, W = x.shape[0], x.shape[1], cfg.attn_window
+    cache = attention.gqa_init_cache(cfg, B, n, window=W, device=x.device)
+    attention.gqa_prefill(cfg, p, x[:, :S], cache, window=W)
+    _, k, v = attention.gqa_project_qkv(cfg, p, x[:, :S], torch.arange(S, device=x.device))
+    keys, values = [k], [v]
+
+    def held(last: int) -> bool:
+        q = torch.arange(max(0, last + 1 - W), last + 1, device=x.device)
+        kk, vv = torch.cat(keys, 1), torch.cat(values, 1)
+        return (torch.equal(cache["k"][:, q % W], kk[:, q])
+                and torch.equal(cache["v"][:, q % W], vv[:, q]))
+
+    fwd = attention.gqa_forward(cfg, p, x, window=W)[:, S:].float()
+    shifted = {name: torch.roll(t, -(S % W), dims=1) for name, t in cache.items()}
+    ref_layout = attention.gqa_decode(cfg, p, x[:, S:S + 1], shifted, S, window=W)[0][:, 0]
+    ref_gap = float((ref_layout.float() - fwd[:, 0]).abs().max())
+    wrong = [] if held(S - 1) else [S - 1]
+    gaps = []
+    for pos in range(S, n):
+        out = attention.gqa_decode(cfg, p, x[:, pos:pos + 1], cache, pos, window=W)[0][:, 0]
+        _, k, v = attention.gqa_project_qkv(
+            cfg, p, x[:, pos:pos + 1], torch.full((1,), pos, dtype=torch.int64, device=x.device))
+        keys.append(k)
+        values.append(v)
+        gaps.append(float((out.float() - fwd[:, pos - S]).abs().max()))
+        if not held(pos):
+            wrong.append(pos)
+    scale = float(fwd.abs().max())
+    log(f"phase o: ring of {W} after a {S}-token prefill and {n - S} decode steps: every "
+        f"window's position q at slot q % W bit for bit "
+        f"{'after each' if not wrong else f'NOT after positions {wrong}'}; decode outputs "
+        f"against the windowed forward (max abs of the output {scale:.6f}) by step: "
+        f"{' '.join(f'{g:.6f}' for g in gaps)}; the first step on the JAX package's layout "
+        f"{ref_gap:.6f}")
+    check(not wrong, f"phase o: the ring does not hold position q at slot q % W after the "
+          f"writes up to positions {wrong}")
+    return {"exact": not wrong, "steps": n - S, "scale": scale, "port": max(gaps),
+            "reference_layout": ref_gap}
+
+
+def decode_bytes(params, cache) -> tuple:
+    """The bytes a decode step needs: every weight but the embedding table
+    (it reads the batch's rows), each cache and state leaf read once, and
+    the recurrent states (not the attention ring, one slot a step) written
+    once.  Returns (bytes, weight bytes, cache bytes)."""
+    weights = sum(t.numel() * t.element_size() for _, t in _leaves(
+        {k: v for k, v in params.items() if k != "embed"}))
+    read = written = 0
+    for name, t in _leaves(cache):
+        n = t.numel() * t.element_size()
+        read += n
+        written += 0 if name in ("k", "v") else n
+    return weights + read + written, weights, read
+
+
+def timed_recurrent_step(cfg, bundle, params, engine, tokens) -> dict:
+    """After a prefill of ``tokens``, REC_NEW decode steps timed together
+    (host clock, ending in a synchronisation), then one more under
+    torch.profiler, beside the bytes a step needs."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    S = tokens.shape[1]
+    cache = engine._cache0
+    tok = tokens[:, -1:]
+    with torch.no_grad():
+        bundle.prefill(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(REC_NEW):
+            bundle.decode_step(params, tok, cache, S + i)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / REC_NEW
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            bundle.decode_step(params, tok, cache, S + REC_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    needed, weights, cache_bytes = decode_bytes(params, cache)
+    for _, t in _leaves(cache):
+        t.zero_()
+    bound = needed / HBM_BYTES_PER_S
+    log(f"phase o: {cfg.name}: {REC_NEW} timed decode steps after a {tokens.shape[0]} x {S} "
+        f"prefill: {step_s * 1e3:.3f} ms a step; traced step (position {S + REC_NEW}): "
+        f"{busy_share(prof, wall)}; kernel classes: {kernel_classes(prof)}. The bytes a step "
+        f"needs: {needed / 1e9:.3f} GB ({weights / 1e9:.3f} GB of weights but the embedding "
+        f"table, {cache_bytes / 1e9:.3f} GB of ring and state read, the states written), "
+        f"{bound * 1e3:.3f} ms at 3.35 TB/s: a timed step is {step_s / bound:.2f}x that bound, "
+        f"the traced one {wall / bound:.2f}x")
+    return {"decode_step_s": step_s, "traced_step_s": wall, "needed_gb": needed / 1e9,
+            "step_bound_s": bound}
+
+
+def serve_recurrent(counters: "Counters", cfg, params, requests: list) -> dict:
+    """Greedy requests of REC_BATCH prompts and REC_NEW new tokens through a
+    ServeEngine (after a short warm-up), timed, each held against teacher
+    forcing over two routes (:func:`hold_to_teacher`).  A request: its
+    ``label``, prompt length ``S``, config ``cfg`` (route A's too), route
+    B's context ``ctx`` and config ``cfg_b``, and the teachers' lengths
+    ``len_a`` and ``len_b`` (padded where the chunked WKV needs it)."""
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServeEngine
+
+    rng = np.random.default_rng(SEED)
+    max_len = max(r["S"] for r in requests) + REC_NEW
+    out, fails = {}, []
+    for r in requests:
+        S, run_cfg, label = r["S"], r["cfg"], r["label"]
+        rec = LogitLog(get_model(run_cfg))
+        engine = ServeEngine(rec.bundle, params, max_len=max_len, batch=REC_BATCH, device="cuda")
+        prompt = rng.integers(0, cfg.vocab, (REC_BATCH, S)).astype(np.int32)
+        engine.generate({"tokens": prompt[:, :REC_WARMUP]}, max_new_tokens=2)
+        rec.logits.clear()
+        torch.cuda.reset_peak_memory_stats()
+        counters.zero()
+        res = engine.generate({"tokens": prompt}, max_new_tokens=REC_NEW)
+        counts = counters.read(f"phase o ({label})", ())
+        check(counts["flash_attention"] == 0, f"phase o: {label} launched flash_attention "
+              f"{counts['flash_attention']} times")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_s = res.decode_s / (res.steps - 1)
+        log(f"phase o: {label}: prefill of {REC_BATCH} x {S} tokens {res.prefill_s:.6f} s "
+            f"({REC_BATCH * S / res.prefill_s:.1f} tok/s); {res.steps - 1} decode steps in "
+            f"{res.decode_s:.6f} s ({step_s * 1e3:.3f} ms a step, {REC_BATCH / step_s:.1f} tok/s); "
+            f"peak device memory {peak:.3f} GiB; flash_attention launches "
+            f"{counts['flash_attention']}")
+
+        full = torch.cat([torch.as_tensor(prompt, dtype=torch.int64),
+                          torch.as_tensor(res.tokens[:, :-1], dtype=torch.int64)], 1).to("cuda")
+        t0 = time.perf_counter()
+        pre = teacher_logits(run_cfg, tf, params, full[:, :S], S, S)[:, 0]
+        want = teacher_logits(run_cfg, tf, params, full, S, r["len_a"])
+        with r["ctx"]():
+            other = teacher_logits(r["cfg_b"], tf, params, full, S, r["len_b"])
+        log(f"phase o: {label}: teachers over {full.shape[1]} tokens (route A at {r['len_a']}, "
+            f"route B {r['route_b']} at {r['len_b']}) in {time.perf_counter() - t0:.3f} s")
+        f, summary = hold_to_teacher("o", label, rec.logits, res.tokens, pre, want, other)
+        fails += f
+        out[label] = {
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s, "decode_step_s": step_s,
+            "peak_gib": peak, "flash_launches": counts["flash_attention"], "teacher": summary,
+            "prefill_logits": rec.logits[0], "route_b_prefill": other[:, 0], "prompt": prompt,
+            "cfg": run_cfg}
+        del engine
+    check(not fails, "phase o: " + "; ".join(fails))
+    return out
+
+
+def forms_check(params, r: dict) -> dict:
+    """The two WKV forms' prefill logits on one prompt: the chunked
+    request's prefill against its scan-form teacher at the prompt's last
+    position, within FORMS_TOL of the norm a row; and the chunked form with
+    a planted fault (:func:`no_bonus`) on the same prompt, which must land
+    above FORMS_TOL."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    S = r["prompt"].shape[1]
+    scan_pre, chunked_pre = r["route_b_prefill"], r["prefill_logits"]
+    tokens = torch.as_tensor(r["prompt"], dtype=torch.int64, device="cuda")
+    with no_bonus():
+        fault_pre = teacher_logits(r["cfg"], tf, params, tokens, S, S)[:, 0]
+
+    def rel(got) -> float:
+        return float(((got - scan_pre).norm(dim=-1) / scan_pre.norm(dim=-1)).max())
+
+    sound, fault = rel(chunked_pre), rel(fault_pre)
+    ratio = float(((chunked_pre - scan_pre).abs() / (2e-2 + 2e-2 * scan_pre.abs())).max())
+    log(f"phase o: the WKV forms' prefill logits on the {S}-token prompt: max abs "
+        f"{float((chunked_pre - scan_pre).abs().max()):.6f} (allclose ratio {ratio:.4f} at "
+        f"2e-2), ||chunked - scan|| / ||scan|| max {sound:.6f} a row; the chunked form with "
+        f"the bonus term left out (a planted fault) {fault:.6f}; limit {FORMS_TOL}")
+    check(sound <= FORMS_TOL, f"phase o: the WKV forms' prefill logits differ by {sound} of "
+          "their norm")
+    check(fault > FORMS_TOL, f"phase o: the planted fault moves the logits by only {fault} "
+          f"of their norm, within the forms' limit {FORMS_TOL}")
+    return {"norm_ratio": sound, "allclose_ratio": ratio, "planted_fault": fault}
+
+
+def drive_recurrent_model(counters: "Counters", name: str) -> dict:
+    """One model of phase (o)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import get_model, recurrent
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServeEngine
+
+    cfg, params = recurrent_model(name)
+    rng = np.random.default_rng(SEED + 1)
+    out = {}
+    if name == RG_ARCH:
+        S = max(RG_PROMPTS)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (REC_BATCH, S + REC_NEW)),
+                                 device="cuda")
+        with torch.no_grad(), Capture(recurrent, "_rglru_scan") as scan, \
+                Capture(tf.attn_lib, "gqa_forward") as attn:
+            tf.forward_hidden(cfg, params, tokens)
+        out["scan"] = rglru_scan_check(*scan.args)
+        with torch.no_grad():
+            out["ring"] = ring_check(cfg, attn.args[1], attn.args[2], S)
+        del scan, attn
+        requests = [dict(label=f"{cfg.name} prompt {P}", S=P, cfg=cfg, ctx=sequential_scan,
+                         cfg_b=cfg, route_b="(the RG-LRU stepped sequentially)",
+                         len_a=P + REC_NEW - 1, len_b=P + REC_NEW - 1) for P in RG_PROMPTS]
+    else:
+        forms = {impl: dataclasses.replace(cfg, rwkv_impl=impl) for impl in ("scan", "chunked")}
+        S = max(P for P, _ in RWKV_PROMPTS)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (REC_BATCH, S)), device="cuda")
+        with torch.no_grad(), Capture(recurrent, "_wkv_chunked") as wkv:
+            tf.forward_hidden(forms["chunked"], params, tokens)
+        out["wkv"] = wkv_forms_check(*wkv.args)
+        del wkv
+        length = {"scan": lambda P: P + REC_NEW - 1,   # the chunked form: a multiple of 32
+                  "chunked": lambda P: -(-(P + REC_NEW - 1) // recurrent.WKV_CHUNK)
+                  * recurrent.WKV_CHUNK}
+        other = {"scan": "chunked", "chunked": "scan"}
+        requests = [dict(label=f"{cfg.name} ({impl}) prompt {P}", S=P, cfg=forms[impl],
+                         ctx=contextlib.nullcontext, cfg_b=forms[other[impl]],
+                         route_b=f"(the {other[impl]} WKV)", len_a=length[impl](P),
+                         len_b=length[other[impl]](P)) for P, impl in RWKV_PROMPTS]
+    served = serve_recurrent(counters, cfg, params, requests)
+    out["requests"] = {label: {k: v for k, v in r.items()
+                               if k not in ("prefill_logits", "route_b_prefill", "prompt", "cfg")}
+                       for label, r in served.items()}
+    if name == RWKV_ARCH:
+        out["forms"] = forms_check(params, [r for r in served.values()
+                                            if r["cfg"].rwkv_impl == "chunked"][0])
+    # one traced decode step after a prefill of the last request's prompt
+    last = list(served.values())[-1]
+    S = last["prompt"].shape[1]
+    bundle = get_model(last["cfg"])
+    engine = ServeEngine(bundle, params, max_len=S + REC_NEW + 1, batch=REC_BATCH,
+                         device="cuda")
+    tokens = torch.as_tensor(last["prompt"], dtype=torch.int64, device="cuda")
+    counters.zero()
+    out["traced"] = timed_recurrent_step(cfg, bundle, params, engine, tokens)
+    counters.read(f"phase o ({cfg.name}, traced step)", ())
+    del params, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_recurrent(counters: "Counters") -> dict:
+    """Phase (o): RecurrentGemma-9B (RG-LRU + sliding-window attention) and
+    RWKV-6 3B at their published widths and full depth, each alone on the
+    card."""
+    return {name: drive_recurrent_model(counters, name) for name in (RG_ARCH, RWKV_ARCH)}
+
+
 # ------------------------------------------------------------- (k) training
 TRAIN_RUN = dict(arch="minicpm-2b", reduced=False, steps=5, seq_len=1024, global_batch=8,
                  save_every=0, schedule="wsd")
@@ -3046,6 +3513,7 @@ def main(argv=None) -> int:
     phase("h", drive_serving, counters)
     phase("m", drive_deepseek, counters)
     phase("n", drive_phi, counters)
+    phase("o", drive_recurrent, counters)
     with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
         phase("k", drive_training, Path(tmp), counters)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")

@@ -102,10 +102,11 @@ def train(run: RunConfig, *, guard: Optional[PreemptionGuard] = None,
     on the host's clock on the CPU."""
     device = resolve_device(device)
     cfg = run_model_config(run)
-    if cfg.n_experts or "mla" in cfg.blocks():
+    if cfg.n_experts or {"mla", "rglru", "rwkv"} & set(cfg.blocks()):
         raise NotImplementedError(
-            f"{cfg.name}: training the MoE and MLA families (their backward, the MTP "
-            "loss) waits for its slice (ROADMAP Queue 1, other model families); they serve")
+            f"{cfg.name}: training the MoE, MLA and recurrent families (their backward: "
+            "the MTP loss, the associative and WKV scans) waits for its slice (ROADMAP "
+            "Queue 1, other model families); they serve")
     bundle = get_model(cfg)
     step_fn = make_train_step(bundle, train_config(run))
 

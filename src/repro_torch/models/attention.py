@@ -1,5 +1,5 @@
-"""Attention blocks: GQA (with qk-norm) and MLA (DeepSeek), as
-``repro.models.attention`` has them.
+"""Attention blocks: GQA (with qk-norm and an optional sliding window) and
+MLA (DeepSeek), as ``repro.models.attention`` has them.
 
 Each block has three paths sharing its parameters:
 
@@ -9,7 +9,8 @@ Each block has three paths sharing its parameters:
 
 Cache layouts:
 
-* GQA: ``{"k": (B, S_max, KV, hd), "v": ...}``;
+* GQA: ``{"k": (B, S_max, KV, hd), "v": ...}``; with a window W, a ring of
+  ``min(W, S_max)`` slots that holds position p at slot p % W;
 * MLA: the full cache ``{"k": (B, S_max, H, nd + rd), "v": (B, S_max, H,
   vd)}``, or with ``mla_compressed_cache`` the latent ``{"ckv": (B, S_max,
   kv_lora + rope_dim)}``, whose decode attends in the latent space with the
@@ -20,8 +21,11 @@ into the caller's cache in place (it is the engine's own buffer) and return
 it.  MLA never takes the flash kernel: the JAX package calls the chunked
 softmax directly there (q's head dim, nd + rd, differs from v's).
 
-The sliding window (``window``) and cross-attention (``cross_kv``) wait for
-the hybrid and enc-dec families (ROADMAP Queue 1) and raise.
+The windowed prefill lays the ring out as decode writes it, position p at
+slot p % W.  The JAX package's prefill keeps the last W keys from slot 0,
+which its decode agrees with only when S <= W or S % W == 0 (ROADMAP Queue
+3); at those lengths both caches are equal.  Cross-attention (``cross_kv``)
+waits for the enc-dec family (ROADMAP Queue 1) and raises.
 """
 
 from __future__ import annotations
@@ -33,14 +37,14 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention, kernel_takes, needs_grad
-from .layers import Params, apply_rope, chunked_attention, rms_norm, rope_table
-
-_LATER = "waits for the {} family (ROADMAP Queue 1, other model families)"
-
-
-def _no_window(window: int) -> None:
-    if window:
-        raise NotImplementedError("sliding-window attention " + _LATER.format("hybrid"))
+from .layers import (
+    Params,
+    apply_rope,
+    block_local_attention,
+    chunked_attention,
+    rms_norm,
+    rope_table,
+)
 
 
 def _full_attention(q, k, v, *, causal: bool):
@@ -81,45 +85,62 @@ def _out_proj(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
 
 def gqa_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *, window: int = 0,
                 positions=None, cross_kv=None, causal: bool = True) -> torch.Tensor:
-    _no_window(window)
     if cross_kv is not None:
-        raise NotImplementedError("cross-attention " + _LATER.format("enc-dec"))
+        raise NotImplementedError("cross-attention waits for the enc-dec family (ROADMAP "
+                                  "Queue 1, other model families)")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = gqa_project_qkv(cfg, p, x, positions)
-    return _out_proj(cfg, p, _full_attention(q, k, v, causal=causal))
+    if window:
+        o = block_local_attention(q, k, v, window=window)
+    else:
+        o = _full_attention(q, k, v, causal=causal)
+    return _out_proj(cfg, p, o)
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, window: int = 0,
                    dtype=torch.bfloat16, device="cuda") -> Dict:
-    _no_window(window)
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    S = min(window, max_len) if window else max_len
     return {
-        "k": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
+        "k": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
     }
 
 
 def gqa_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Dict,
                 *, window: int = 0) -> Tuple[torch.Tensor, Dict]:
-    _no_window(window)
     S = x.shape[1]
     q, k, v = gqa_project_qkv(cfg, p, x, torch.arange(S, device=x.device))
-    o = _full_attention(q, k, v, causal=True)
-    cache["k"][:, :S] = k
-    cache["v"][:, :S] = v
+    if window:
+        o = block_local_attention(q, k, v, window=window)
+        W = cache["k"].shape[1]
+        # the last min(S, W) positions, position p at slot p % W; the slots
+        # past S (a prompt shorter than the ring) hold zeros
+        n = min(S, W)
+        slots = torch.arange(S - n, S, device=x.device) % W
+        for name, t in (("k", k), ("v", v)):
+            cache[name][:, n:] = 0
+            cache[name][:, slots] = t[:, S - n:]
+    else:
+        o = _full_attention(q, k, v, causal=True)
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
     return _out_proj(cfg, p, o), cache
 
 
 def gqa_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Dict,
                pos: int, *, window: int = 0) -> Tuple[torch.Tensor, Dict]:
-    """x: (B, 1, D); pos: the current position (tokens in the cache)."""
-    _no_window(window)
+    """x: (B, 1, D); pos: the current position (tokens before this one)."""
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q, k, v = gqa_project_qkv(cfg, p, x, positions)
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
-    o = chunked_attention(q, cache["k"], cache["v"], causal=False, kv_len=pos + 1)
+    # the ring holds the last W tokens (slot pos % W); the rotary phases were
+    # applied at absolute positions, so one softmax over the ring is exact
+    slot = pos % cache["k"].shape[1] if window else pos
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    kv_len = min(pos + 1, cache["k"].shape[1])
+    o = chunked_attention(q, cache["k"], cache["v"], causal=False, kv_len=kv_len)
     return _out_proj(cfg, p, o), cache
 
 

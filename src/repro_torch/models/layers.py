@@ -1,6 +1,7 @@
-"""Shared model building blocks: norms, RoPE, MLPs, chunked attention.
+"""Shared model building blocks: norms, RoPE, MLPs, chunked and
+block-local attention.
 
-A copy of ``repro.models.layers`` in PyTorch, for the dense decoder family.
+A copy of ``repro.models.layers`` in PyTorch.
 
 Conventions (the JAX package's):
 
@@ -10,11 +11,13 @@ Conventions (the JAX package's):
 * every block takes and returns (B, S, D) activations;
 * attention is **chunked / online-softmax** over KV chunks, so prefill
   never materialises (S, S) scores; a product of bf16 operands accumulates
-  in f32 (the operands are widened, exactly, before ``einsum``).
+  in f32 (the operands are widened, exactly, before ``einsum``);
+* sliding-window attention takes the exact block-local form (block =
+  window, each block attends to itself and the previous one): O(S·W), one
+  block's scores at a time.
 
-The windowed (``block_local_attention``) and recurrent (``group_norm_heads``)
-helpers wait for their families (ROADMAP Queue 1).  The JAX package's
-``shard`` annotations are no-ops outside a mesh and have no counterpart.
+The JAX package's ``shard`` annotations are no-ops outside a mesh and have
+no counterpart.
 """
 
 from __future__ import annotations
@@ -36,6 +39,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head LayerNorm over head_dim (RWKV's ln_x), population variance."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
 
 
 # ---------------------------------------------------------------------- RoPE
@@ -149,3 +162,51 @@ def chunked_attention(
         m = m_new
     o = o / torch.clamp(l[..., None], min=1e-30)
     return o.reshape(B, Sq, H, hd_v).to(q.dtype)
+
+
+def block_local_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Exact sliding-window causal attention, O(S·W).
+
+    Queries in block i attend to keys in blocks {i-1, i} with the mask
+    ``q_pos - window < k_pos <= q_pos``: a causal sliding window of width
+    ``window`` when blocks are window-sized.  The JAX package computes every
+    block's (W, 2W) scores at once; here one block's at a time (the same
+    products and softmax), so that the f32 scores of one block are the
+    largest buffer.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    W = window
+    dev = q.device
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    nb = -(-S // W)
+    pad = nb * W - S
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    # the bf16 operand, widened exactly
+    qb = (q.float() * scale).to(q.dtype).float().reshape(B, nb, W, KV, g, hd)
+    kb = k.reshape(B, nb, W, KV, hd)
+    vb = v.reshape(B, nb, W, KV, hd)
+    q_pos = torch.arange(W, device=dev)[:, None]          # within-block query pos
+    k_pos = torch.arange(2 * W, device=dev)[None, :] - W   # relative to block start
+    mask = (k_pos <= q_pos) & (k_pos > q_pos - W)          # (W, 2W)
+    out = torch.empty((B, nb, W, H, hd), dtype=q.dtype, device=dev)
+    for n in range(nb):
+        # block 0's previous block is zeros, masked: keys at negative positions
+        k_prev = kb[:, n - 1] if n else torch.zeros_like(kb[:, 0])
+        v_prev = vb[:, n - 1] if n else torch.zeros_like(vb[:, 0])
+        k2 = torch.cat([k_prev, kb[:, n]], dim=1).float()  # (B, 2W, KV, hd)
+        v2 = torch.cat([v_prev, vb[:, n]], dim=1).float()
+        s = torch.einsum("bqkgd,bckd->bqkgc", qb[:, n], k2)
+        m = mask if n else mask & (k_pos >= 0)
+        s = torch.where(m[None, :, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bqkgc,bckd->bqkgd", p.to(q.dtype).float(), v2)
+        out[:, n] = o.reshape(B, W, H, hd).to(q.dtype)
+    return out.reshape(B, nb * W, H, hd)[:, :S]

@@ -2,14 +2,18 @@
 
 ``get_model(cfg)`` returns a bundle of plain functions that the server and
 the trainer share.  Batches are ``{"tokens": (B, S) integer}``.  The port
-runs decoder configs of ``attn`` (GQA) and ``mla`` blocks, each with a dense
-MLP or an MoE (``moe_impl="dispatch"``); the other families raise and name
-their ROADMAP item.  Sharding axes
-(``param_axes`` / ``cache_axes``) wait for the mesh tooling.
+runs decoder configs of ``attn`` (GQA, windowed or not), ``mla``, ``rglru``
+and ``rwkv`` blocks, with a dense MLP or an MoE (``moe_impl="dispatch"``);
+the encoder-decoder family and the expert-parallel MoE raise and name their
+ROADMAP item.  Sharding axes (``param_axes`` / ``cache_axes``) wait for the
+mesh tooling.
 
 ``count_params`` derives N (total and active) analytically from the config,
-a copy of the JAX package's, which counts DeepSeek's MTP block as a GQA
-block though it is an MLA block (ROADMAP Queue 3).
+a copy of the JAX package's, with its two miscounts (ROADMAP Queue 3): it
+counts DeepSeek's MTP block as a GQA block though it is an MLA block, and
+leaves out RWKV-6's twelve D-vectors a layer (``mu_x``, the five rows of
+``mu_rkvwg``, ``w0``, ``u``, ``ln_x_scale``, ``ln_x_bias``, ``ffn_mu_k``,
+``ffn_mu_r``).
 """
 
 from __future__ import annotations
@@ -35,8 +39,8 @@ class ModelBundle:
 
 def get_model(cfg: ModelConfig) -> ModelBundle:
     """The bundle of ``cfg``; a family the port does not run yet raises
-    ``NotImplementedError`` naming its ROADMAP item (enc-dec, the recurrent
-    blocks, the expert-parallel MoE)."""
+    ``NotImplementedError`` naming its ROADMAP item (enc-dec, the
+    expert-parallel MoE)."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models wait for the enc-dec family (ROADMAP "

@@ -1,8 +1,9 @@
-"""Decoder LM spine, as ``repro.models.transformer`` has it, for the
-attention families: GQA and MLA blocks, each with a dense MLP or an MoE.
+"""Decoder LM spine, as ``repro.models.transformer`` has it: GQA, MLA,
+RG-LRU and RWKV-6 blocks.
 
 Layers are partitioned into **segments**: maximal runs of a repeating unit
-(e.g. DeepSeek's 3 dense + 58 MoE split).  Each segment stacks its
+(e.g. RecurrentGemma's (rglru, rglru, attn) triple, DeepSeek's 3 dense + 58
+MoE split).  Each segment stacks its
 parameters over the repeat axis, exactly as the JAX package's parameter tree
 does (``params["segments"][i][j][name]`` has the repeat count first); where
 JAX scans a segment, the port loops over the stack index in Python.  In
@@ -12,11 +13,13 @@ only each layer's input is kept, and the layer is recomputed in the backward
 pass.  The ``REPRO_REMAT_POLICY=dots`` knob has no counterpart yet (ROADMAP
 Queue 1).
 
-Block kinds: ``attn`` (GQA) and ``mla`` (DeepSeek), paired with an MLP or
-an MoE (``cfg.layer_uses_moe``).  With ``cfg.mtp`` the tree has DeepSeek's
+Block kinds: ``attn`` (GQA, with ``cfg.attn_window`` a sliding window),
+``mla`` (DeepSeek) and ``rglru`` (Griffin), each paired with an MLP or an
+MoE (``cfg.layer_uses_moe``), and ``rwkv`` (RWKV-6), which carries its own
+channel mix.  With ``cfg.mtp`` the tree has DeepSeek's
 multi-token-prediction head (``mtp``), whose hidden states the forward pass
-returns in its aux.  ``rglru`` and ``rwkv`` wait for their families and the
-expert-parallel MoE for the pod tooling (ROADMAP Queue 1) and raise.
+returns in its aux.  The expert-parallel MoE waits for the pod tooling
+(ROADMAP Queue 1) and raises.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import resolve_device
+from ..tree import tree_map
 from . import attention as attn_lib
 from . import moe as moe_lib
+from . import recurrent as rec_lib
 from .layers import Params, mlp_gelu, mlp_swiglu, rms_norm
 
 
@@ -69,12 +74,11 @@ def segments(cfg: ModelConfig) -> List[Segment]:
 
 
 def check_kind(cfg: ModelConfig, kind: str, use_moe: bool) -> None:
-    """Raise ``NotImplementedError``, naming its ROADMAP item, for a block
-    the port does not run yet."""
-    if kind not in ("attn", "mla"):
-        raise NotImplementedError(
-            f"{cfg.name}: {kind!r} blocks wait for their model family (ROADMAP Queue 1, "
-            "other model families); the port runs attention and MLA blocks")
+    """Raise ``ValueError`` for an unknown block kind, and
+    ``NotImplementedError``, naming its ROADMAP item, for a form the port
+    does not run yet (the expert-parallel MoE)."""
+    if kind not in ("attn", "mla", "rglru", "rwkv"):
+        raise ValueError(kind)
     if use_moe and cfg.moe_impl == "ep":
         raise NotImplementedError(
             f"{cfg.name}: the expert-parallel MoE (moe_impl='ep') waits for the pod "
@@ -100,10 +104,12 @@ def _nrm(gen: torch.Generator, shape, std, device, dtype=torch.bfloat16) -> torc
 
 def block_spec(cfg: ModelConfig, kind: str, use_moe: bool,
                *, repeats: Optional[int] = None) -> Dict[str, Any]:
-    """One block's parameters as ``name -> (shape, std, dtype)``, ``std``
-    None for the zero-initialised norm scales; ``repeats`` of them stacked
-    on a leading axis.  The shapes, stds and dtypes are those of the JAX
-    package's ``block_init``: bf16, but for the MoE router's f32."""
+    """One block's parameters as ``name -> (shape, init, dtype)``; ``repeats``
+    of them stacked on a leading axis.  ``init`` is a std (normal), None
+    (zeros: the norm scales, biases), ``"ones"`` or ``"uniform"`` (U(0, 1):
+    the RG-LRU's Λ).  The shapes, inits and dtypes are those of the JAX
+    package's ``block_init``: bf16, but for the MoE router's and the
+    recurrent blocks' vectors, f32."""
     check_kind(cfg, kind, use_moe)
     D, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
@@ -116,7 +122,33 @@ def block_spec(cfg: ModelConfig, kind: str, use_moe: bool,
         return (lead + tuple(shape), s, dtype)
 
     spec: Dict[str, Any] = {"norm1": leaf((D,))}
-    if kind == "attn":
+    f32 = torch.float32
+    if kind == "rwkv":  # no separate MLP: the channel mix is part of the block
+        sl, dl = cfg.rwkv_shift_lora, cfg.rwkv_decay_lora
+        spec.update(
+            norm2=leaf((D,)),
+            mu_x=leaf((D,), std, f32), mu_rkvwg=leaf((5, D), std, f32),
+            shift_w1=leaf((D, 5 * sl), std), shift_w2=leaf((5, sl, D), std),
+            w_r=leaf((D, D), std), w_k=leaf((D, D), std), w_v=leaf((D, D), std),
+            w_g=leaf((D, D), std), w_o=leaf((D, D), out_std),
+            w0=leaf((D,), std, f32), decay_w1=leaf((D, dl), std), decay_w2=leaf((dl, D), std),
+            u=leaf((D,), std, f32), ln_x_scale=leaf((D,), "ones", f32),
+            ln_x_bias=leaf((D,), None, f32),
+            ffn_mu_k=leaf((D,), std, f32), ffn_mu_r=leaf((D,), std, f32),
+            ffn_k=leaf((D, cfg.d_ff), std), ffn_v=leaf((cfg.d_ff, D), std),
+            ffn_r=leaf((D, D), std),
+        )
+        return spec
+    if kind == "rglru":
+        W, K = cfg.lru_width, cfg.conv_width
+        spec.update(
+            w_rec_in=leaf((D, W), std), w_gate_in=leaf((D, W), std), w_out=leaf((W, D), std),
+            conv_w=leaf((K, W), std),
+            a_gate=leaf((W,), std, f32), a_gate_bias=leaf((W,), None, f32),
+            i_gate=leaf((W,), std, f32), i_gate_bias=leaf((W,), None, f32),
+            **{"lambda": leaf((W,), "uniform", f32)},
+        )
+    elif kind == "attn":
         spec.update(wq=leaf((D, H, hd), std), wk=leaf((D, KV, hd), std),
                     wv=leaf((D, KV, hd), std), wo=leaf((H, hd, D), out_std))
         if cfg.qk_norm:
@@ -155,7 +187,7 @@ def block_spec(cfg: ModelConfig, kind: str, use_moe: bool,
 
 
 def _spec_map(fn, spec: Any) -> Any:
-    """``fn`` applied to every ``(shape, std, dtype)`` leaf of a spec, in its
+    """``fn`` applied to every ``(shape, init, dtype)`` leaf of a spec, in its
     insertion order (the order the leaves are drawn in)."""
     if isinstance(spec, dict):
         return {k: _spec_map(fn, v) for k, v in spec.items()}
@@ -164,13 +196,20 @@ def _spec_map(fn, spec: Any) -> Any:
     return fn(*spec)
 
 
+def _draw_leaf(shape, init, dtype, generator: torch.Generator, device) -> torch.Tensor:
+    if init is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if init == "uniform":
+        return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return _nrm(generator, shape, init, device, dtype)
+
+
 def _draw(spec: Any, generator: torch.Generator, device) -> Any:
-    """A spec's leaves drawn on ``device``: zeros where ``std`` is None."""
-    return _spec_map(
-        lambda shape, std, dtype: (torch.zeros(shape, dtype=dtype, device=device)
-                                   if std is None
-                                   else _nrm(generator, shape, std, device, dtype)),
-        spec)
+    """A spec's leaves drawn on ``device`` (:func:`block_spec`'s inits)."""
+    return _spec_map(lambda shape, init, dtype: _draw_leaf(shape, init, dtype, generator,
+                                                           device), spec)
 
 
 def block_init(cfg: ModelConfig, kind: str, use_moe: bool, generator: torch.Generator,
@@ -195,6 +234,8 @@ def block_apply(
     window: int = 0,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     check_kind(cfg, kind, use_moe)
+    if kind == "rwkv":  # both sublayers and their norms
+        return rec_lib.rwkv_block(cfg, p, x, cache)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache: Optional[Dict] = None
     if kind == "attn":
@@ -205,6 +246,8 @@ def block_apply(
             a, new_cache = attn_lib.gqa_prefill(cfg, p, h, cache, window=w)
         else:
             a, new_cache = attn_lib.gqa_decode(cfg, p, h, cache, pos, window=w)
+    elif kind == "rglru":
+        a, new_cache = rec_lib.rglru_block(cfg, p, h, cache)
     elif mode == "train":
         a = attn_lib.mla_forward(cfg, p, h)
     elif mode == "prefill":
@@ -224,14 +267,18 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     check_kind(cfg, kind, False)
     if kind == "mla":
         return attn_lib.mla_init_cache(cfg, batch, max_len, device=device)
+    if kind == "rglru":
+        return rec_lib.rglru_init_state(cfg, batch, device=device)
+    if kind == "rwkv":
+        return rec_lib.rwkv_init_state(cfg, batch, device=device)
     w = window or (cfg.attn_window if len(cfg.layer_pattern) > 1 else 0)
     return attn_lib.gqa_init_cache(cfg, batch, max_len, window=w, device=device)
 
 
 # ------------------------------------------------------------------- the LM
 def param_spec(cfg: ModelConfig) -> Params:
-    """The parameter tree as ``(shape, std, dtype)`` leaves (``std`` None:
-    zeros): ``embed``, ``final_norm``, ``lm_head`` unless tied, ``segments``,
+    """The parameter tree as ``(shape, init, dtype)`` leaves
+    (:func:`block_spec`): ``embed``, ``final_norm``, ``lm_head`` unless tied, ``segments``,
     and with ``cfg.mtp`` the MTP head, ``mtp: {proj (2D, D), block}``, whose
     block is of the last layer's kind with a dense MLP."""
     D, V = cfg.d_model, cfg.padded_vocab
@@ -254,7 +301,7 @@ def param_shapes(cfg: ModelConfig, dtype: Optional[torch.dtype] = None) -> Param
     alone (a restore template that allocates nothing): each leaf's own dtype
     (bf16; the MoE router f32), or ``dtype`` for every leaf (the optimizer
     moments, f32)."""
-    return _spec_map(lambda shape, std, own: (shape, dtype or own), param_spec(cfg))
+    return _spec_map(lambda shape, init, own: (shape, dtype or own), param_spec(cfg))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Params:
@@ -348,10 +395,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> lis
         seg_caches = []
         for (kind, _moe) in seg.unit:
             one = block_cache_init(cfg, kind, batch, max_len, device=device)
-            seg_caches.append({
-                k: torch.zeros((seg.repeats,) + tuple(t.shape), dtype=t.dtype, device=device)
-                for k, t in one.items()
-            })
+            seg_caches.append(tree_map(
+                lambda t: torch.zeros((seg.repeats,) + tuple(t.shape), dtype=t.dtype,
+                                      device=device), one))
         caches.append(seg_caches)
     return caches
 

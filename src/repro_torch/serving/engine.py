@@ -1,5 +1,5 @@
-"""Serving engine: batched prefill + decode against a KV cache, as
-``repro.serving.engine`` has it.
+"""Serving engine: batched prefill + decode against a KV cache or a
+recurrent state, as ``repro.serving.engine`` has it.
 
 The engine owns one cache buffer, made once at the constructor's batch and
 ``max_len``; prefill and every decode step write into it in place, and
@@ -22,6 +22,7 @@ import torch
 
 from ..kernels import resolve_device
 from ..models.registry import ModelBundle
+from ..tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -107,10 +108,8 @@ class ServeEngine:
                     break
         self._sync()
         decode_s = time.monotonic() - t0
-        for seg in self._cache0:
-            for unit in seg:
-                for t in unit.values():
-                    t.zero_()
+        for t in tree_leaves(self._cache0):
+            t.zero_()
         return GenerationResult(
             tokens=torch.cat(out, dim=1).to(torch.int32).cpu().numpy(),
             prefill_s=prefill_s,

@@ -33,6 +33,7 @@ from repro_torch.models import attention as port_attention
 from repro_torch.models import layers as port_layers
 from repro_torch.models import transformer as port_tf
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
+from repro_torch.launch.train import RunConfig, train
 from repro_torch.training.train_loop import TrainConfig, make_loss_fn
 
 DENSE = ["minicpm-2b", "minitron-4b", "starcoder2-7b", "qwen3-32b"]
@@ -153,11 +154,14 @@ def test_gqa_prefill_then_decode(qwen_layer, monkeypatch, flash):
 
 
 def test_unported_attention_raises(qwen_layer):
+    """Cross-attention waits for the enc-dec family and raises, naming its
+    ROADMAP item; the sliding window runs (tests/test_torch_hybrid.py holds
+    it against the JAX package)."""
     _, cfg_t, p_np = qwen_layer
     pt = params_from_numpy(p_np, device="cpu")
     x = torch.zeros((1, 8, cfg_t.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_attention.gqa_forward(cfg_t, pt, x, window=4)
+    out = port_attention.gqa_forward(cfg_t, pt, x, window=4)
+    assert tuple(out.shape) == (1, 8, cfg_t.d_model) and bool(torch.isfinite(out.float()).all())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_attention.gqa_forward(cfg_t, pt, x, cross_kv=(x, x))
 
@@ -234,13 +238,17 @@ def _non_norm_count(tree) -> int:
                if "norm" not in jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("name", DENSE + ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("name", DENSE + ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b",
+                                  "rwkv6-3b", "recurrentgemma-9b"])
 def test_init_params_tree_matches_jax(name):
     """The port's init draws the JAX tree's shapes and dtypes (the MoE
-    routers f32), on the caller's device from the caller's generator, with
-    the stds of _nrm.  Its parameters, norm scales aside, number as many as
-    the JAX tree's, and as ``count_params`` counts but where the MTP block
-    is MLA, which it counts as GQA (tests/test_torch_mla.py)."""
+    routers and the recurrent blocks' vectors f32), on the caller's device
+    from the caller's generator, with the stds of _nrm (the RG-LRU's Λ
+    uniform on (0, 1), RWKV's ln_x scale ones).  Its parameters, norm scales
+    aside, number as many as the JAX tree's, and as ``count_params`` counts
+    but where the MTP block is MLA, which it counts as GQA
+    (tests/test_torch_mla.py), and for RWKV-6, whose twelve D-vectors a
+    layer it leaves out (ROADMAP Queue 3)."""
     cfg_t = ARCHS[name].reduced()
     p_np = jax.tree.map(np.asarray, jax_get_model(JAX_ARCHS[name].reduced()).init(
         jax.random.PRNGKey(0)))
@@ -253,17 +261,25 @@ def test_init_params_tree_matches_jax(name):
     assert abs(float(pt["embed"].float().std()) - 0.02) < 2e-3
     total = _non_norm_count(params_to_numpy(pt))
     assert total == _non_norm_count(p_np)
-    if not (cfg_t.mtp and cfg_t.blocks()[-1] == "mla"):
+    if cfg_t.layer_pattern == ("rwkv",):
+        assert total - count_params(cfg_t) == 12 * cfg_t.d_model * cfg_t.n_layers
+    elif name == "recurrentgemma-9b":
+        lam = pt["segments"][0][0]["lambda"]
+        assert float(lam.min()) >= 0.0 and float(lam.max()) < 1.0 and lam.dtype == torch.float32
+        assert total == count_params(cfg_t)
+    elif not (cfg_t.mtp and cfg_t.blocks()[-1] == "mla"):
         assert total == count_params(cfg_t)
 
 
 @pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "rwkv6-3b",
                                   "recurrentgemma-9b", "seamless-m4t-medium"])
-def test_other_families_raise(name):
+def test_other_families_raise(name, tmp_path):
     """What the port does not run yet raises, naming its ROADMAP item: the
-    recurrent and enc-dec families; for the two MoE archs, which serve,
-    Phi-3.5-MoE's expert-parallel form (``moe_impl="ep"``) and DeepSeek's
-    MTP loss (the train loss would drop it)."""
+    enc-dec family; for the two MoE archs, which serve, Phi-3.5-MoE's
+    expert-parallel form (``moe_impl="ep"``) and DeepSeek's MTP loss (the
+    train loss would drop it); for the recurrent families, which serve,
+    their training (``launch.train.train`` refuses them before it draws a
+    parameter)."""
     if name not in ARCHS:
         pytest.fail(f"{name} is not an arch: {sorted(ARCHS)}")
     cfg = ARCHS[name]
@@ -278,6 +294,16 @@ def test_other_families_raise(name):
         assert "mtp_hidden" in bundle.train_hidden(params, {"tokens": tokens})[1]
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             make_loss_fn(bundle, TrainConfig())(params, {"tokens": tokens})
+        return
+    if name in ("rwkv6-3b", "recurrentgemma-9b"):
+        bundle = get_model(cfg.reduced())
+        params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.zeros((1, 8), dtype=torch.int64)
+        logits, _ = bundle.prefill(params, {"tokens": tokens},
+                                   bundle.init_cache(1, 9, device="cpu"))
+        assert tuple(logits.shape) == (1, 1, cfg.reduced().padded_vocab)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            train(RunConfig(arch=name, steps=1, ckpt_dir=str(tmp_path)), device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         get_model(cfg)
