@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent) and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent, encoder-decoder) and training paths on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -74,15 +74,19 @@ use (into ``build/``).  Phases:
     with host ground truth.
 
 (h) Dense-LM serving.  First the flash-attention kernel against its plain
-    version on unit-normal bf16 inputs (max abs error <= 2e-2), and bit-equal
-    across two calls, at the serving shape (B 8, S 2048, H 24, KV 8, hd 128,
+    version on unit-normal bf16 inputs (max abs error <= 2e-2 and <= 2e-2
+    of the row's max |want|; a kernel that skipped the first KV tile, made
+    by SDPA with a mask, must land above that limit), and bit-equal across
+    two calls, at the serving shape (B 8, S 2048, H 24, KV 8, hd 128,
     causal), at S = 1152, at minicpm-2b's heads (g = 1, hd 64), at
     starcoder2-7b's (g = 9, at B 2 and 8), non-causal, with a softmax_scale
     override, at S = 128, at hd 32, with q, k, v as strided views of one
     fused QKV tensor, at S = 200 (called directly: keys past a tile) and at
-    Sq = 128 against Sk = 2048; timed at the serving shape beside its bound,
-    its plain version and ``scaled_dot_product_attention`` (the yardstick;
-    never on the path), and beside SDPA at S = 1152, hd 64 and g = 9.
+    Sq = 128 against Sk = 2048, and at SeamlessM4T-medium's encoder (B 8,
+    S 1024, 16 heads over 16 of 64, non-causal); timed at the serving shape
+    beside its bound, its plain version and ``scaled_dot_product_attention``
+    (the yardstick; never on the path), and beside SDPA and its bound at
+    phase (n)'s shape, S = 1152, hd 64, g = 9 and the encoder's.
     ``_full_attention`` at hd 256 and at 72 query heads a KV head (S = 128)
     must take the chunked softmax: no flash launch, no error.
     Then minitron-4b at its full width and depth (5.1 B parameters, drawn
@@ -211,17 +215,34 @@ use (into ``build/``).  Phases:
     peak memory and flash launches (0: the hybrid's attention is windowed at
     hd 256, RWKV has none), and one traced decode step beside the bytes it
     needs (every weight but the embedding table, the ring or state).
+(p) SeamlessM4T-medium serving at its published widths and full depth, no
+    cut (12 encoder and 12 decoder layers, d 1024, 16 heads over 16 of 64,
+    d_ff 4096 GELU, vocab 256,206; 0.877 B, drawn on the card from a seeded
+    generator; the tree must number ``count_params`` plus the vocab's
+    padding).  A ServeEngine of batch 8 and ``enc_len`` 1024 answers three
+    greedy requests of 32 new tokens on seeded N(0, 1) bf16 frames (the stub
+    frontend's output): 1024 frames and a 128-token prompt, 1024 and 100,
+    and 1000 frames (fewer than enc_len) and 128, which must launch the
+    flash kernel exactly 24, 12 and 12 times (the encoder's non-causal
+    self-attention at S_enc % 128 = 0, the decoder's prefill at prompt %
+    128 = 0; decode and the cross-attention take the chunked softmax).  Each
+    request is held against teacher forcing (``hold_to_teacher``: the
+    prefill against a teacher over the prompt alone, the decode steps
+    against teachers over the decoder's tokens as they are and padded to a
+    multiple of 128).  One prefill and one decode step run under
+    torch.profiler: walls, idle share, kernel classes and peak memory, the
+    step beside the bytes it needs and the operations of the cross K/V that
+    every decoder layer recomputes from the encoder output at every step.
 
 Phases (e) and (h)'s kernel checks run right after (a), so that every
 kernel is checked before the main path starts.  The launch counters of the
 kernels are set to 0 before each main-path phase and read after it; a
 kernel its phase should use that launched no time fails the run, as does
 any mismatch.  Phases (b), (c), (f), (g), (i), (j), (l), (h)'s requests,
-(m), (n), (o) and (k) are the main path ((j) runs after (d), on (b)'s ground
-truth; (m), (n), (o) and (k) run last, each alone on the card's memory); the
-launches of
-the kernel checks, which compare kernels with their plain versions, are not
-counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
+(m), (n), (o), (p) and (k) are the main path ((j) runs after (d), on (b)'s
+ground truth; (m), (n), (o), (p) and (k) run last, each alone on the card's
+memory); the launches of the kernel checks, which compare kernels with their
+plain versions, are not counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
 result line).  The last lines are the card's name and power limit
 (``nvidia-smi``), one JSON object with each kernel's numbers, and the
 result line ``{"ok": true, "device": {...}}``; the segment kernels' entries
@@ -261,7 +282,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefghijklmno"
+PHASES = "abcdefghijklmnop"
 
 
 def log(msg: str) -> None:
@@ -1763,6 +1784,10 @@ SERVE_BATCH = 8
 SERVE_PROMPTS = (2048, 1152, 1000)  # flash, flash (not a multiple of 512), gate
 SERVE_NEW = 32
 FLASH_TOL = 2e-2
+# and at most this share of the row's max |want|: a non-causal row averages
+# hundreds of keys, so its outputs are far under FLASH_TOL; a kernel that
+# skipped one KV tile must land above the limit (``skipped_tile_err``)
+FLASH_REL_TOL = 2e-2
 # label, B, Sq, Sk, H, KV, hd, causal, softmax_scale, fused: unit-normal bf16
 # inputs; fused takes q, k, v as strided views of one (B, S, H + 2 KV, hd)
 # tensor, as a fused QKV projection would give them
@@ -1780,14 +1805,40 @@ FLASH_SHAPES = (
     ("fused qkv", 8, 2048, 2048, 24, 8, 128, True, None, True),  # TMA through strides
     ("S=200", 2, 200, 200, 24, 8, 128, True, None, False),      # keys past a tile, called directly
     ("Sq=128 Sk=2048", 2, 128, 2048, 24, 8, 128, False, None, False),
+    ("seamless encoder", 8, 1024, 1024, 16, 16, 64, False, None, False),  # phase (p)'s encoder
 )
-FLASH_TIMED = ("phi serving", "S=1152", "g=1 hd=64", "g=9", "g=9 B=8")  # logged beside SDPA
+FLASH_TIMED = ("phi serving", "S=1152", "g=1 hd=64", "g=9", "g=9 B=8",
+               "seamless encoder")  # logged beside SDPA
 
 
 def flash_blocks(S: int) -> int:
     """The block size ``_full_attention`` passes for a sequence of S (and,
     for one that is not a multiple of 128, S itself: a direct call)."""
     return 512 if S % 512 == 0 else 128 if S % 128 == 0 else S
+
+
+def skipped_tile_err(q, k, v, want, block_k: int, causal: bool, scale) -> tuple:
+    """The max abs gap from ``want`` of two planted faults, computed by SDPA
+    with an explicit mask on the row's inputs: (a kernel that skipped the
+    first KV tile for every query with keys past it, one whose softmax
+    scale is 5% off)."""
+    import torch
+    import torch.nn.functional as F
+
+    Sq, Sk, g = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(g, dim=1) for t in (k, v))
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Sk, device=q.device)[None, :]
+    keep = (j <= i) if causal else torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    s = scale if scale is not None else q.shape[-1] ** -0.5
+    gaps = []
+    for mask, sc in ((keep & ~((j < block_k) & ((i >= block_k) if causal else True)), s),
+                     (keep, 1.05 * s)):
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sc)
+        gaps.append(float((out.transpose(1, 2).float() - want.float()).abs().max()))
+        del out
+    return tuple(gaps)
 
 
 def flash_checks(dev) -> list:
@@ -1822,11 +1873,23 @@ def flash_checks(dev) -> list:
         want = flash_attention_ref(q, k, v, block_k=bk, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        limit = min(FLASH_TOL, FLASH_REL_TOL * top)
         same = torch.equal(got, again)
+        faults = ""
+        if Sk > bk:   # a second KV tile to keep when the first is skipped
+            skipped, off = skipped_tile_err(q, k, v, want, bk, causal, scale)
+            faults = (f"; planted faults: the first KV tile skipped max_abs_err {skipped} "
+                      f"({skipped / top:.4f} of max |want|), softmax scale 5% off {off} "
+                      f"({off / top:.4f})")
+            check(skipped > limit, f"flash_attention {label}: a skipped KV tile lands at "
+                                   f"{skipped}, within the limit {limit}")
         log(f"phase h: flash_attention {label} (B {B}, Sq {Sq}, Sk {Sk}, H {H}, KV {KV}, "
             f"hd {hd}, causal {causal}, scale {scale}, fused views {fused}): max_abs_err "
-            f"{err}, two calls bit-equal {same}")
-        check(err <= FLASH_TOL, f"flash_attention {label}: max_abs_err {err} > {FLASH_TOL}")
+            f"{err} ({err / top:.4f} of max |want| {top}; limit {limit}), two calls bit-equal "
+            f"{same}{faults}")
+        check(err <= limit, f"flash_attention {label}: max_abs_err {err} > {limit} "
+                            f"(min of {FLASH_TOL} and {FLASH_REL_TOL} of max |want| {top})")
         check(same, f"flash_attention {label}: two calls on the same inputs differ")
         if label != "serving" and label not in FLASH_TIMED:
             continue
@@ -3118,6 +3181,179 @@ def drive_recurrent(counters: "Counters") -> dict:
     return {name: drive_recurrent_model(counters, name) for name in (RG_ARCH, RWKV_ARCH)}
 
 
+# ------------------------------------------------------ (p) enc-dec serving
+ED_ARCH = "seamless-m4t-medium"
+ED_BATCH = 8
+ED_ENC_LEN = 1024          # the engine's enc_len: the rows of the cache's enc_out entry
+ED_NEW = 32
+# (S_enc, prompt): both on flash; the decoder's prefill on the chunked
+# softmax; the encoder on the chunked softmax with frames shorter than
+# enc_len
+ED_REQUESTS = ((1024, 128), (1024, 100), (1000, 128))
+
+
+def encdec_lm(frames):
+    """The enc-dec model on ``frames`` as the module :func:`teacher_logits`
+    takes: a decoder whose ``forward_hidden`` reads the frames' encoding
+    (the padding tokens are causal in its self-attention, and its
+    cross-attention reads the encoder only)."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tf
+
+    return SimpleNamespace(
+        forward_hidden=lambda cfg, params, tokens: ed.forward_hidden_encdec(
+            cfg, params, frames, tokens),
+        lm_logits=tf.lm_logits)
+
+
+def encdec_step_bytes(cfg, params, S_enc: int, pos: int) -> tuple:
+    """The bytes a decode step at position ``pos`` needs: the decoder's
+    weights and the LM head (not the encoder's, nor the embedding table, of
+    which it reads the batch's rows), the self cache up to the position and
+    the S_enc rows of the encoder output, each read once; and the operations
+    of the cross K/V that every layer recomputes from the encoder output
+    (ROADMAP Queue 3).  Returns (bytes, weight bytes, cross K/V FLOPs)."""
+    weights = sum(t.numel() * t.element_size() for _, t in _leaves(
+        {k: v for k, v in params.items() if k not in ("embed", "enc")}))
+    kv_row = cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    cache = 2 * cfg.n_layers * ED_BATCH * (pos + 1) * kv_row
+    enc_out = ED_BATCH * S_enc * cfg.d_model * 2
+    cross_flops = 2 * 2 * ED_BATCH * S_enc * cfg.d_model * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * cfg.n_layers
+    return weights + cache + enc_out, weights, cross_flops
+
+
+def drive_encdec(counters: Counters) -> dict:
+    """Phase (p): SeamlessM4T-medium at its published widths and full depth
+    on the card: three greedy requests through a ServeEngine, each held
+    against teacher forcing, with the flash launches counted; then one
+    prefill and one decode step under torch.profiler."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import count_params, get_model
+    from repro_torch.serving import ServeEngine
+
+    cfg = ARCHS[ED_ARCH]
+    bundle = get_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    n_norms = sum(t.numel() for name, t in _leaves(params) if "norm" in name)
+    pad = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * 2   # embed and lm_head
+    log(f"phase p: {cfg.name} at its published widths and depth ({cfg.enc_layers} encoder and "
+        f"{cfg.n_layers} decoder layers, d {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} of {cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.mlp_kind}, vocab "
+        f"{cfg.vocab}): {n_params} parameters ({n_params - n_norms} but the norm scales; "
+        f"count_params {count_params(cfg)} + {pad} vocab padding), {n_params * 2 / 1e9:.3f} GB "
+        f"bf16, drawn on the card in {time.perf_counter() - t0:.3f} s")
+    check(n_params - n_norms == count_params(cfg) + pad,
+          f"phase p: {n_params - n_norms} parameters against count_params {count_params(cfg)} "
+          f"+ {pad} padding")
+
+    rec = LogitLog(bundle)
+    max_len = max(S for _, S in ED_REQUESTS) + ED_NEW
+    engine = ServeEngine(rec.bundle, params, max_len=max_len, batch=ED_BATCH,
+                         enc_len=ED_ENC_LEN, device="cuda")
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def request(S_enc: int, S: int) -> dict:   # the stub frontend's frames, N(0, 1) bf16
+        return {"frames": torch.randn((ED_BATCH, S_enc, cfg.d_model), generator=gen,
+                                      device="cuda").to(torch.bfloat16),
+                "tokens": rng.integers(0, cfg.vocab, (ED_BATCH, S)).astype(np.int32)}
+
+    t0 = time.perf_counter()
+    engine.generate(request(*ED_REQUESTS[0]), max_new_tokens=2)   # warm-up
+    log(f"phase p: warm-up request in {time.perf_counter() - t0:.3f} s")
+    out, fails = {}, []
+    for S_enc, S in ED_REQUESTS:
+        label = f"S_enc {S_enc} prompt {S}"
+        batch = request(S_enc, S)
+        rec.logits.clear()
+        torch.cuda.reset_peak_memory_stats()
+        counters.zero()
+        res = engine.generate(batch, max_new_tokens=ED_NEW)
+        want_launches = (cfg.enc_layers if S_enc % 128 == 0 else 0) + \
+            (cfg.n_layers if S % 128 == 0 else 0)
+        counts = counters.read(f"phase p ({label})", ("flash_attention",))
+        check(counts["flash_attention"] == want_launches,
+              f"phase p: {label} launched flash_attention {counts['flash_attention']} times, "
+              f"not {want_launches}")
+        check(res.tokens.shape == (ED_BATCH, ED_NEW), f"phase p: tokens {res.tokens.shape}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_s = res.decode_s / (res.steps - 1)
+        log(f"phase p: {label}: prefill of {ED_BATCH} x {S_enc} frames and {ED_BATCH} x {S} "
+            f"tokens {res.prefill_s:.6f} s; {res.steps - 1} decode steps in {res.decode_s:.6f} s "
+            f"({step_s * 1e3:.3f} ms a step, {ED_BATCH / step_s:.1f} tok/s); peak device memory "
+            f"{peak:.3f} GiB; flash_attention launches {counts['flash_attention']}")
+        # two routes to the teacher's logits: the decoder's tokens as they
+        # are (its self-attention on the chunked softmax) and padded to a
+        # multiple of 128 (the flash kernel); the prefill is held against a
+        # teacher over the prompt alone, the prefill's own arithmetic
+        full = torch.cat([torch.as_tensor(batch["tokens"], dtype=torch.int64),
+                          torch.as_tensor(res.tokens[:, :-1], dtype=torch.int64)], 1).to("cuda")
+        n = full.shape[1]
+        lm = encdec_lm(batch["frames"])
+        pre = teacher_logits(cfg, lm, params, full[:, :S], S, S)[:, 0]
+        want = teacher_logits(cfg, lm, params, full, S, n)
+        other = teacher_logits(cfg, lm, params, full, S, -(-n // 128) * 128)
+        f, summary = hold_to_teacher("p", label, rec.logits, res.tokens, pre, want, other)
+        fails += f
+        out[label] = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+                      "decode_step_s": step_s, "peak_gib": peak,
+                      "flash_launches": counts["flash_attention"], "teacher": summary}
+
+    # one prefill and one decode step under the profiler
+    S_enc, S = ED_REQUESTS[0]
+    batch = request(S_enc, S)
+    inputs = {"frames": batch["frames"],
+              "tokens": torch.as_tensor(batch["tokens"], dtype=torch.int64, device="cuda")}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cache = engine._cache0
+    torch.cuda.reset_peak_memory_stats()
+    walls, ret = {}, None
+    with torch.no_grad():
+        for label, what in (("prefill", f"{ED_BATCH} x {S_enc} frames, {ED_BATCH} x {S} tokens"),
+                            ("decode step", f"position {S}")):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                if ret is None:
+                    _, ret = bundle.prefill(params, inputs, cache)
+                else:
+                    bundle.decode_step(params, inputs["tokens"][:, -1:], ret, S)
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - t0
+            log(f"phase p: traced {label} ({what}): {busy_share(prof, walls[label])}; "
+                f"kernel classes: {kernel_classes(prof)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for _, t in _leaves(cache):
+        t.zero_()
+    needed, weights, cross_flops = encdec_step_bytes(cfg, params, S_enc, S)
+    bound = needed / HBM_BYTES_PER_S
+    cross_s = cross_flops / TENSOR_FLOPS_PER_S
+    step_s = out[f"S_enc {S_enc} prompt {S}"]["decode_step_s"]
+    log(f"phase p: the decode step needs {needed / 1e9:.3f} GB ({weights / 1e9:.3f} GB of "
+        f"decoder and head weights, the self cache up to the position and the encoder output "
+        f"read once): {bound * 1e3:.3f} ms at 3.35 TB/s; the cross K/V recomputed in every "
+        f"layer is {cross_flops / 1e12:.4f} TFLOP, {cross_s * 1e3:.3f} ms at 989 TFLOP/s; the "
+        f"traced step {walls['decode step'] * 1e3:.3f} ms ({walls['decode step'] / bound:.2f}x "
+        f"the bytes bound), the engine's steps {step_s * 1e3:.3f} ms "
+        f"({step_s / bound:.2f}x); peak device memory of the traced pair {peak:.3f} GiB")
+    out["traced"] = {"prefill_s": walls["prefill"], "decode_step_s": walls["decode step"],
+                     "needed_gb": needed / 1e9, "step_bound_s": bound,
+                     "cross_kv_tflop": cross_flops / 1e12, "cross_kv_s": cross_s,
+                     "peak_gib": peak}
+    del params, engine, rec
+    torch.cuda.empty_cache()
+    check(not fails, "phase p: " + "; ".join(fails))
+    return out
+
+
 # ------------------------------------------------------------- (k) training
 TRAIN_RUN = dict(arch="minicpm-2b", reduced=False, steps=5, seq_len=1024, global_batch=8,
                  save_every=0, schedule="wsd")
@@ -3514,6 +3750,7 @@ def main(argv=None) -> int:
     phase("m", drive_deepseek, counters)
     phase("n", drive_phi, counters)
     phase("o", drive_recurrent, counters)
+    phase("p", drive_encdec, counters)
     with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
         phase("k", drive_training, Path(tmp), counters)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")

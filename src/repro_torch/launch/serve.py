@@ -3,7 +3,9 @@
     python -m repro_torch.launch.serve --arch minitron-4b [--device cpu]
 
 Runs the ``reduced()`` config of ``--arch``, as the JAX package's driver
-does, on the card unless ``--device cpu`` is given.
+does, on the card unless ``--device cpu`` is given.  An encoder-decoder
+arch gets seeded frames of ``--prompt-len`` rows beside its prompts (the
+stub frontend's output), as the JAX driver makes them.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ def main(argv=None) -> None:
     )
     rng = np.random.RandomState(0)
     batch = {"tokens": rng.randint(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)}
+    if cfg.is_encdec:
+        batch["frames"] = rng.randn(args.batch, args.prompt_len, cfg.d_model).astype(np.float32)
     res = engine.generate(batch, max_new_tokens=args.max_new_tokens)
     tps = res.steps * args.batch / max(res.decode_s, 1e-9)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"

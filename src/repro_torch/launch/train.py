@@ -102,6 +102,11 @@ def train(run: RunConfig, *, guard: Optional[PreemptionGuard] = None,
     on the host's clock on the CPU."""
     device = resolve_device(device)
     cfg = run_model_config(run)
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: training the encoder-decoder family (its batches carry frames, "
+            "which the synthetic pipeline does not make) waits for ROADMAP Queue 1 item "
+            "3c; it serves")
     if cfg.n_experts or {"mla", "rglru", "rwkv"} & set(cfg.blocks()):
         raise NotImplementedError(
             f"{cfg.name}: training the MoE, MLA and recurrent families (their backward: "

@@ -24,8 +24,9 @@ softmax directly there (q's head dim, nd + rd, differs from v's).
 The windowed prefill lays the ring out as decode writes it, position p at
 slot p % W.  The JAX package's prefill keeps the last W keys from slot 0,
 which its decode agrees with only when S <= W or S % W == 0 (ROADMAP Queue
-3); at those lengths both caches are equal.  Cross-attention (``cross_kv``)
-waits for the enc-dec family (ROADMAP Queue 1) and raises.
+3); at those lengths both caches are equal.  Cross-attention (``cross_kv``,
+the enc-dec family's) takes q from ``x`` and the K/V it is handed, and
+always the chunked softmax, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -86,8 +87,13 @@ def _out_proj(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
 def gqa_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *, window: int = 0,
                 positions=None, cross_kv=None, causal: bool = True) -> torch.Tensor:
     if cross_kv is not None:
-        raise NotImplementedError("cross-attention waits for the enc-dec family (ROADMAP "
-                                  "Queue 1, other model families)")
+        # cross-attention: q from x (no rotary phase, no qk-norm), k and v
+        # handed in (the encoder's); always the chunked softmax, as in JAX
+        B, S, D = x.shape
+        H, hd = cfg.n_heads, cfg.resolved_head_dim
+        q = (x @ p["wq"].reshape(D, H * hd)).reshape(B, S, H, hd)
+        k, v = cross_kv
+        return _out_proj(cfg, p, chunked_attention(q, k, v, causal=False))
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = gqa_project_qkv(cfg, p, x, positions)

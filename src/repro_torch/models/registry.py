@@ -1,12 +1,17 @@
 """Arch registry: one ModelBundle API, as ``repro.models.registry`` has it.
 
 ``get_model(cfg)`` returns a bundle of plain functions that the server and
-the trainer share.  Batches are ``{"tokens": (B, S) integer}``.  The port
-runs decoder configs of ``attn`` (GQA, windowed or not), ``mla``, ``rglru``
-and ``rwkv`` blocks, with a dense MLP or an MoE (``moe_impl="dispatch"``);
-the encoder-decoder family and the expert-parallel MoE raise and name their
-ROADMAP item.  Sharding axes (``param_axes`` / ``cache_axes``) wait for the
-mesh tooling.
+the trainer share.  Batches:
+
+* LM families: ``{"tokens": (B, S) integer}`` (and optionally
+  ``"inputs_embeds"`` (B, S, D));
+* enc-dec (audio): ``{"frames": (B, S_enc, D), "tokens": (B, S) integer}``.
+
+The port runs decoder configs of ``attn`` (GQA, windowed or not), ``mla``,
+``rglru`` and ``rwkv`` blocks, with a dense MLP or an MoE
+(``moe_impl="dispatch"``), and the encoder-decoder family
+(:mod:`.encdec`); the expert-parallel MoE raises and names its ROADMAP item.
+Sharding axes (``param_axes`` / ``cache_axes``) wait for the mesh tooling.
 
 ``count_params`` derives N (total and active) analytically from the config,
 a copy of the JAX package's, with its two miscounts (ROADMAP Queue 3): it
@@ -22,6 +27,7 @@ import dataclasses
 from typing import Any, Callable
 
 from ..configs.base import ModelConfig
+from . import encdec as ed
 from . import transformer as tf
 
 
@@ -32,19 +38,32 @@ class ModelBundle:
     train_logits: Callable[..., Any]     # (params, batch) -> (logits, aux)
     train_hidden: Callable[..., Any]     # (params, batch) -> (hidden, aux)
     head: Callable[..., Any]             # (params, hidden) -> logits
-    init_cache: Callable[..., Any]       # (batch, max_len, device="cuda") -> cache
+    init_cache: Callable[..., Any]       # (batch, max_len, [enc_len,] device="cuda") -> cache
     prefill: Callable[..., Any]          # (params, batch, cache) -> (logits, cache)
     decode_step: Callable[..., Any]      # (params, token, cache, pos) -> ...
 
 
 def get_model(cfg: ModelConfig) -> ModelBundle:
-    """The bundle of ``cfg``; a family the port does not run yet raises
-    ``NotImplementedError`` naming its ROADMAP item (enc-dec, the
-    expert-parallel MoE)."""
+    """The bundle of ``cfg``; a form the port does not run yet raises
+    ``NotImplementedError`` naming its ROADMAP item (the expert-parallel
+    MoE).  The enc-dec bundle's ``init_cache`` takes ``enc_len``, the rows of
+    the cache's ``enc_out`` entry, ``max_len`` by default."""
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models wait for the enc-dec family (ROADMAP "
-            "Queue 1, other model families)")
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda generator, device="cuda": ed.init_params_encdec(cfg, generator, device),
+            train_logits=lambda p, batch: ed.forward_train_encdec(
+                cfg, p, batch["frames"], batch["tokens"]),
+            train_hidden=lambda p, batch: ed.forward_hidden_encdec(
+                cfg, p, batch["frames"], batch["tokens"]),
+            head=lambda p, h: tf.lm_logits(cfg, p, h),
+            init_cache=lambda batch, max_len, enc_len=None, device="cuda": ed.init_cache_encdec(
+                cfg, batch, max_len, enc_len or max_len, device),
+            prefill=lambda p, batch, cache: ed.prefill_encdec(
+                cfg, p, batch["frames"], batch["tokens"], cache),
+            decode_step=lambda p, tok, cache, pos: ed.decode_step_encdec(
+                cfg, p, tok, cache, pos),
+        )
     for seg in tf.segments(cfg):
         for kind, use_moe in seg.unit:
             tf.check_kind(cfg, kind, use_moe)

@@ -1,14 +1,18 @@
 """Serving engine: batched prefill + decode against a KV cache or a
 recurrent state, as ``repro.serving.engine`` has it.
 
-The engine owns one cache buffer, made once at the constructor's batch and
-``max_len``; prefill and every decode step write into it in place, and
-``generate`` clears it before it returns, so the shapes never change between
-requests.  Greedy decoding (``temperature <= 0``) takes the argmax of the
-logits; sampling draws from a ``torch.Generator`` seeded from ``seed`` (not
-JAX's stream).  ``prefill_s`` and ``decode_s`` are wall times that end in a
-device synchronisation.  The encoder-decoder arguments wait for the enc-dec
-family (ROADMAP Queue 1).
+The engine owns one cache buffer, made once at the constructor's batch,
+``max_len`` and, for an encoder-decoder model, ``enc_len`` (``max_len`` by
+default; it sizes the cache's ``enc_out`` entry, as the JAX engine's, and
+the frames may be longer or shorter); prefill and every decode step write
+into it in place, and ``generate`` clears it before it returns, so the
+shapes never change between requests.  Every entry of the request's
+batch goes to the bundle's prefill, moved to the engine's device: the
+tokens as int64, the rest (``inputs_embeds``, an enc-dec model's
+``frames``) in their own dtype.  Greedy decoding (``temperature <= 0``)
+takes the argmax of the logits; sampling draws from a ``torch.Generator``
+seeded from ``seed`` (not JAX's stream).  ``prefill_s`` and ``decode_s``
+are wall times that end in a device synchronisation.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ..kernels import resolve_device
 from ..models.registry import ModelBundle
+from ..store.convert import tensor_from_numpy
 from ..tree import tree_leaves
 
 
@@ -43,6 +48,7 @@ class ServeEngine:
         batch: int,
         temperature: float = 0.0,
         eos_id: Optional[int] = None,
+        enc_len: Optional[int] = None,
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
@@ -53,7 +59,14 @@ class ServeEngine:
         self.batch = batch
         self.temperature = temperature
         self.eos_id = eos_id
-        self._cache0 = bundle.init_cache(batch, max_len, device=self.device)
+        kw = {"enc_len": enc_len} if self.cfg.is_encdec else {}
+        self._cache0 = bundle.init_cache(batch, max_len, device=self.device, **kw)
+
+    def _on_device(self, x: Any) -> torch.Tensor:
+        """A batch entry as a tensor on the engine's device, in its dtype (a
+        numpy bfloat16 array, ml_dtypes', as torch's)."""
+        t = x if isinstance(x, torch.Tensor) else tensor_from_numpy(np.asarray(x))
+        return t.to(self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -74,8 +87,8 @@ class ServeEngine:
         max_new_tokens: int,
         seed: int = 0,
     ) -> GenerationResult:
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]), dtype=torch.int64,
-                                 device=self.device)
+        inputs = {k: self._on_device(v) for k, v in batch.items()}
+        tokens = inputs["tokens"] = inputs["tokens"].to(torch.int64)
         B, prompt_len = tokens.shape
         if B != self.batch or prompt_len + max_new_tokens - 1 > self.max_len:
             raise ValueError(
@@ -88,7 +101,7 @@ class ServeEngine:
 
         self._sync()
         t0 = time.monotonic()
-        logits, cache = self.bundle.prefill(self.params, {"tokens": tokens}, self._cache0)
+        logits, cache = self.bundle.prefill(self.params, inputs, self._cache0)
         tok = self._sample(logits, gen)
         self._sync()
         prefill_s = time.monotonic() - t0

@@ -3,9 +3,9 @@ JAX package's, on the CPU.
 
 Both packages compute from the same numpy inputs and the same weights: the
 JAX package's ``init`` draws them and ``params_from_numpy`` carries them
-into the port.  The four dense configs run at their ``reduced()`` size
+into the port.  The five dense configs run at their ``reduced()`` size
 (minicpm-2b: MHA, tied embeddings; minitron-4b; starcoder2-7b: GELU;
-qwen3-32b: qk-norm).  The port's attention takes the flash path wherever
+qwen3-32b and chameleon-34b: qk-norm).  The port's attention takes the flash path wherever
 the JAX opt-in path would (here through its plain version); the JAX side
 runs with ``REPRO_FLASH_ATTN=1`` (its Pallas kernel in interpret mode) and
 without it (its chunked softmax).  Tolerances: 2e-2 for prefill and
@@ -30,13 +30,14 @@ from repro.models import transformer as jax_tf
 from repro_torch.configs import ARCHS
 from repro_torch.models import count_params, get_model
 from repro_torch.models import attention as port_attention
+from repro_torch.models import encdec as port_encdec
 from repro_torch.models import layers as port_layers
 from repro_torch.models import transformer as port_tf
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 from repro_torch.launch.train import RunConfig, train
 from repro_torch.training.train_loop import TrainConfig, make_loss_fn
 
-DENSE = ["minicpm-2b", "minitron-4b", "starcoder2-7b", "qwen3-32b"]
+DENSE = ["minicpm-2b", "minitron-4b", "starcoder2-7b", "qwen3-32b", "chameleon-34b"]
 B, S = 2, 128          # S a multiple of 128: the prefill takes the flash path
 LAYER_TOL = dict(rtol=1e-2, atol=1e-5)
 
@@ -154,16 +155,28 @@ def test_gqa_prefill_then_decode(qwen_layer, monkeypatch, flash):
 
 
 def test_unported_attention_raises(qwen_layer):
-    """Cross-attention waits for the enc-dec family and raises, naming its
-    ROADMAP item; the sliding window runs (tests/test_torch_hybrid.py holds
-    it against the JAX package)."""
-    _, cfg_t, p_np = qwen_layer
+    """The attention forms that once raised run: the sliding window
+    (tests/test_torch_hybrid.py holds it against the JAX package) and
+    cross-attention (the enc-dec family's; tests/test_torch_encdec.py),
+    held here against the JAX package's on a layer with qk-norm, which the
+    cross-attention's query skips as its rotary phase."""
+    cfg_j, cfg_t, p_np = qwen_layer
     pt = params_from_numpy(p_np, device="cpu")
     x = torch.zeros((1, 8, cfg_t.d_model), dtype=torch.bfloat16)
     out = port_attention.gqa_forward(cfg_t, pt, x, window=4)
     assert tuple(out.shape) == (1, 8, cfg_t.d_model) and bool(torch.isfinite(out.float()).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_attention.gqa_forward(cfg_t, pt, x, cross_kv=(x, x))
+    rng = np.random.RandomState(8)
+    xj, xt = bf16(rng, B, 16, cfg_t.d_model)
+    (kj, kt), (vj, vt) = (bf16(rng, B, 24, cfg_t.n_kv_heads, cfg_t.resolved_head_dim)
+                          for _ in range(2))
+    want = jax.jit(lambda p, x, kv: jax_attention.gqa_forward(cfg_j, p, x, cross_kv=kv))(
+        jax.tree.map(jnp.asarray, p_np), xj, (kj, vj))
+    got = port_attention.gqa_forward(cfg_t, pt, xt, cross_kv=(kt, vt))
+    assert tuple(got.shape) == (B, 16, cfg_t.d_model)
+    # the layer's output is small (wo's std 0.02 / sqrt(layers)): atol a
+    # share of its largest value, as tests/test_torch_encdec.py holds layers
+    want = np.asarray(want, np.float32)
+    close(got, want, rtol=1e-2, atol=1e-2 * float(np.abs(want).max()))
 
 
 # ---------------------------------------------------------------- the model
@@ -273,13 +286,12 @@ def test_init_params_tree_matches_jax(name):
 
 @pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "rwkv6-3b",
                                   "recurrentgemma-9b", "seamless-m4t-medium"])
-def test_other_families_raise(name, tmp_path):
-    """What the port does not run yet raises, naming its ROADMAP item: the
-    enc-dec family; for the two MoE archs, which serve, Phi-3.5-MoE's
-    expert-parallel form (``moe_impl="ep"``) and DeepSeek's MTP loss (the
-    train loss would drop it); for the recurrent families, which serve,
-    their training (``launch.train.train`` refuses them before it draws a
-    parameter)."""
+def test_other_families_raise(name, tmp_path, monkeypatch):
+    """What the port does not run yet raises, naming its ROADMAP item: for
+    the two MoE archs, which serve, Phi-3.5-MoE's expert-parallel form
+    (``moe_impl="ep"``) and DeepSeek's MTP loss (the train loss would drop
+    it); for the recurrent and enc-dec families, which serve, their training
+    (``launch.train.train`` refuses them before it draws a parameter)."""
     if name not in ARCHS:
         pytest.fail(f"{name} is not an arch: {sorted(ARCHS)}")
     cfg = ARCHS[name]
@@ -305,8 +317,19 @@ def test_other_families_raise(name, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             train(RunConfig(arch=name, steps=1, ckpt_dir=str(tmp_path)), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        get_model(cfg)
+    # the enc-dec family serves (tests/test_torch_encdec.py) and does not train
+    bundle = get_model(cfg.reduced())
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    frames = torch.zeros((1, 8, cfg.reduced().d_model), dtype=torch.bfloat16)
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    logits, _ = bundle.prefill(params, {"frames": frames, "tokens": tokens},
+                               bundle.init_cache(1, 8, device="cpu"))
+    assert tuple(logits.shape) == (1, 1, cfg.reduced().padded_vocab)
+    drawn = []
+    monkeypatch.setattr(port_encdec, "init_params_encdec", lambda *a, **k: drawn.append(a))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3c"):
+        train(RunConfig(arch=name, steps=1, ckpt_dir=str(tmp_path)), device="cpu")
+    assert not drawn
 
 
 def test_default_device_raises_without_cuda(arch):

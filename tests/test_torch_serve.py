@@ -86,6 +86,40 @@ def test_greedy_tokens_match_jax_engine(monkeypatch, S):
     assert compared >= B * NEW // 2, (compared, gap)
 
 
+def test_engine_passes_inputs_embeds(monkeypatch):
+    """The engine hands the bundle's prefill the whole batch, as the JAX
+    engine does: with ``inputs_embeds`` its first tokens are the bundle's
+    own prefill's with the embeddings, and the JAX engine's on the same
+    batch (reduced minitron-4b, 2 x 16 prompt tokens, seeded bf16
+    embeddings).  Before, the port's engine dropped the embeddings and
+    answered [116, 315] where the prefill with them gives [503, 414]."""
+    monkeypatch.delenv("REPRO_FLASH_ATTN", raising=False)
+    cfg_j, cfg_t = JAX_ARCHS[ARCH].reduced(), ARCHS[ARCH].reduced()
+    model, port = jax_get_model(cfg_j), get_model(cfg_t)
+    pj = jax.tree.map(jnp.asarray, _weights())
+    pt = params_from_numpy(_weights(), device="cpu")
+    tokens = _prompt(16, seed=13)
+    rng = np.random.RandomState(14)
+    embeds = np.asarray(jnp.asarray(rng.randn(B, 16, cfg_t.d_model), jnp.bfloat16))
+    embeds_t = torch.from_numpy(embeds.view(np.uint16).copy()).view(torch.bfloat16)
+    want = JaxServeEngine(model, pj, max_len=16 + NEW, batch=B).generate(
+        {"tokens": tokens, "inputs_embeds": jnp.asarray(embeds)}, max_new_tokens=2)
+    engine = ServeEngine(port, pt, max_len=16 + NEW, batch=B, device="cpu")
+    first = {}
+    for name, x in (("numpy", embeds), ("tensor", embeds_t)):
+        first[name] = engine.generate({"tokens": tokens, "inputs_embeds": x},
+                                      max_new_tokens=2).tokens[:, 0]
+    plain = engine.generate({"tokens": tokens}, max_new_tokens=2).tokens[:, 0]
+    logits, _ = port.prefill(pt, {"tokens": torch.from_numpy(tokens).long(),
+                                  "inputs_embeds": embeds_t},
+                             port.init_cache(B, 16 + NEW, device="cpu"))
+    bundle_first = logits[:, -1, :cfg_t.vocab].float().argmax(-1).numpy()
+    for got in first.values():
+        np.testing.assert_array_equal(got, bundle_first)
+        np.testing.assert_array_equal(got, np.asarray(want.tokens)[:, 0])
+    assert not np.array_equal(plain, bundle_first)  # the embeddings change the answer
+
+
 @pytest.fixture(scope="module")
 def engine():
     cfg = ARCHS[ARCH].reduced()
