@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent, encoder-decoder) and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent, encoder-decoder) and training (dense, MoE, MLA) paths on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -233,15 +233,48 @@ use (into ``build/``).  Phases:
     torch.profiler: walls, idle share, kernel classes and peak memory, the
     step beside the bytes it needs and the operations of the cross K/V that
     every decoder layer recomputes from the encoder output at every step.
+(q) Training the MoE and MLA families on the card, weights drawn there from
+    a seeded generator.  (q1) ``make_train_step`` on Phi-3.5-MoE at its
+    published widths, cut from 32 to 2 layers (2.865 B parameters, 34.4 GB
+    of train state at 12 bytes a parameter): 5 steps of 4 x 2048 tokens at
+    the published cf 1.25 (C = 320), WSD schedule.  (q2) The same on
+    DeepSeek-V3 cut to its 3 dense MLA layers and the MTP head (4.294 B,
+    51.5 GB; one MoE layer more would be 11.3 B): 5 steps of 2 x 1024.
+    Each prints every step's loss, grad norm, lr, wall (CUDA events) and
+    share of routes dropped, tokens/s, the peak memory and the bound (3
+    forward passes of ``forward_flops``: the dispatch's E x B x (C +
+    1) buffer rows, MLA's projections and its QK^T at nd + rd, the MTP head,
+    over 989 TFLOP/s), and one traced step's busy share and kernel classes;
+    it fails if a loss or grad norm is not finite, ``flash_attention``
+    launched, an MoE layer's recompute in the backward pass chose other
+    experts than its forward, a backward on a fresh batch leaves a leaf
+    without a finite gradient or an attention, MoE or MTP leaf with an
+    all-zero one, the loss is not the main CE plus 0.3 x the MTP CE, or a
+    chunked CE (main, MTP) parts from the unchunked (``ce_check``).  (q1)
+    then holds the first MoE layer's backward on a real layer input at
+    drop-free capacity against ``moe_block_plain``'s, every leaf within
+    ``Q_GRAD_TOL`` of its norm, and the route weights detached (a planted
+    fault) must land above it.  (q3) One DeepSeek-V3 MoE layer at its
+    published widths (256 experts top 8, a shared expert: 11.3 B parameters,
+    no optimizer): one forward and backward of 1 x 512 seeded inputs at
+    drop-free capacity, four experts' router columns zeroed so that no route
+    reaches them; x's, the router's and the shared expert's gradients within
+    ``Q_GRAD_TOL`` of ``moe_block_plain``'s (run with the expert stacks
+    frozen), every expert stack's gradient finite, exactly zero for the
+    experts no route reached and non-zero for the rest.  (q4)
+    ``launch.train.train`` on reduced DeepSeek-V3 with a save every 4 steps,
+    a preemption and a resume; every save restored cold must equal its host
+    copy leaf for leaf (sha256; f32 routers, the MTP head), and
+    ``changed_block_mask`` must launch.
 
 Phases (e) and (h)'s kernel checks run right after (a), so that every
 kernel is checked before the main path starts.  The launch counters of the
 kernels are set to 0 before each main-path phase and read after it; a
 kernel its phase should use that launched no time fails the run, as does
 any mismatch.  Phases (b), (c), (f), (g), (i), (j), (l), (h)'s requests,
-(m), (n), (o), (p) and (k) are the main path ((j) runs after (d), on (b)'s
-ground truth; (m), (n), (o), (p) and (k) run last, each alone on the card's
-memory); the launches of the kernel checks, which compare kernels with their
+(m), (n), (o), (p), (k) and (q) are the main path ((j) runs after (d), on
+(b)'s ground truth; (m), (n), (o), (p), (k) and (q) run last, each alone on
+the card's memory); the launches of the kernel checks, which compare kernels with their
 plain versions, are not counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
 result line).  The last lines are the card's name and power limit
 (``nvidia-smi``), one JSON object with each kernel's numbers, and the
@@ -282,7 +315,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefghijklmnop"
+PHASES = "abcdefghijklmnopq"
 
 
 def log(msg: str) -> None:
@@ -3366,24 +3399,51 @@ CE_GRAD_RTOL = 1e-2
 ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
 
 
-def forward_flops(cfg, batch: int, seq: int) -> float:
+def forward_flops(cfg, batch: int, seq: int, capacity_slots: int = 0) -> float:
     """Matmul operations of one forward pass, counted from the shapes: 2 x
-    each layer's projection and MLP weights x B*S tokens, causal attention's
-    QK^T and PV over the S(S+1)/2 (query, key) pairs a sequence needs, and
-    the tied LM head over the B*(S-1) positions that have a target.  A train
-    step needs 3 of them (the forward and the backward's two); the remat's
-    recompute of every layer and CE chunk is a fourth, a choice of this
-    implementation that the bound does not count."""
-    D, H, KV, hd, F, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-                          cfg.d_ff, cfg.n_layers)
-    mlp_w = (3 if cfg.mlp_kind == "swiglu" else 2) * D * F
-    layer_w = D * H * hd + 2 * D * KV * hd + H * hd * D + mlp_w
-    attn = 2 * 2 * batch * H * hd * seq * (seq + 1) / 2
-    head = 2 * D * cfg.padded_vocab * batch * (seq - 1)
-    return 2 * L * layer_w * batch * seq + L * attn + head
+    each weight x the tokens it multiplies, and causal attention's QK^T and
+    PV over the S(S+1)/2 (query, key) pairs a sequence needs.  Each layer's
+    GQA or MLA attention (MLA's five projections, its QK^T at nd + rd and PV
+    at vd), its MLP (SwiGLU or GELU) or MoE layer (the f32 router, the
+    shared expert per token, and the routed experts over all the dispatch's
+    E x B x (C + 1) buffer rows, ``capacity_slots`` = C + 1: the slots it
+    computes, the overflow bin and empty slots included), the LM head over
+    the B x (S - 1) positions that have a target, and with an MTP head its
+    projection (2D -> D), one dense block over S - 1 positions and its head
+    over B x (S - 2).  A train step needs 3 of them (the forward and the
+    backward's two); the remat's recompute of every layer and CE chunk is a
+    fourth, a choice of this implementation that the bound does not count."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    rd, nd, vd = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
+
+    def attention(kind, tokens, s):
+        pairs = batch * s * (s + 1) / 2
+        if kind == "mla":
+            w = D * qr + qr * H * (nd + rd) + D * (kvr + rd) + kvr * H * (nd + vd) + H * vd * D
+            return 2 * w * tokens + 2 * H * (nd + rd + vd) * pairs
+        return 2 * (D * H * hd + 2 * D * KV * hd + H * hd * D) * tokens + 2 * 2 * H * hd * pairs
+
+    def mlp(moe, tokens):
+        if not moe:
+            return 2 * (3 if cfg.mlp_kind == "swiglu" else 2) * D * cfg.d_ff * tokens
+        rows = cfg.n_experts * batch * capacity_slots
+        shared = 3 * D * cfg.expert_d_ff * cfg.n_shared_experts
+        return (2 * D * cfg.n_experts * tokens + 2 * shared * tokens
+                + 2 * 3 * D * cfg.expert_d_ff * rows)
+
+    tokens = batch * seq
+    total = sum(attention(kind, tokens, seq) + mlp(cfg.layer_uses_moe(i), tokens)
+                for i, kind in enumerate(cfg.blocks()))
+    total += 2 * D * cfg.padded_vocab * batch * (seq - 1)
+    if cfg.mtp:
+        m = batch * (seq - 1)
+        total += (2 * 2 * D * D * m + attention(cfg.blocks()[-1], m, seq - 1) + mlp(False, m)
+                  + 2 * D * cfg.padded_vocab * batch * (seq - 2))
+    return total
 
 
-def ce_check(head, params, hidden, targets, z_loss: float) -> str:
+def ce_check(phase: str, head, params, hidden, targets, z_loss: float) -> str:
     """The chunked cross entropy against the unchunked on the same hidden
     states: the loss within ``CE_RTOL`` relative, and the gradient with
     respect to the hidden states within ``CE_GRAD_RTOL``."""
@@ -3399,8 +3459,8 @@ def ce_check(head, params, hidden, targets, z_loss: float) -> str:
     chunked, full = chunked.item(), full.item()
     rel = abs(chunked - full) / abs(full)
     g_rel = float((g_chunked.float() - g_full.float()).norm() / g_full.float().norm())
-    check(rel <= CE_RTOL, f"phase k: chunked CE differs from the unchunked by {rel:.3e}")
-    check(g_rel <= CE_GRAD_RTOL, "phase k: the chunked CE's gradient differs from the "
+    check(rel <= CE_RTOL, f"phase {phase}: chunked CE differs from the unchunked by {rel:.3e}")
+    check(g_rel <= CE_GRAD_RTOL, f"phase {phase}: the chunked CE's gradient differs from the "
           f"unchunked's by {g_rel:.3e}")
     return (f"chunked CE {chunked:.9f}, unchunked {full:.9f}, relative difference {rel:.3e} "
             f"(tolerance {CE_RTOL}); their gradients with respect to the hidden states "
@@ -3505,7 +3565,7 @@ def drive_training(root: Path, counters: Counters) -> dict:
     del grads, loss
     with torch.no_grad():
         hidden, _ = bundle.train_hidden(params, batch0)
-    log("phase k: step 0's batch: " + ce_check(bundle.head, params, hidden[:, :-1],
+    log("phase k: step 0's batch: " + ce_check("k", bundle.head, params, hidden[:, :-1],
                                                batch0["tokens"][:, 1:], tcfg.z_loss))
     del params, hidden
     torch.cuda.empty_cache()
@@ -3520,6 +3580,24 @@ ACCUM_RUN = dict(arch="minitron-4b", reduced=True, steps=4, seq_len=128, global_
                  save_every=0, grad_accum=2, compress_grads=True)
 CORPUS_TOKENS = 1 << 22   # 16 MiB of int32 token ids
 CORPUS_EDITS = 2          # cleaning passes, each rewriting tokens in 1% of the blocks
+
+
+def preempt_at(at: int):
+    """A preemption guard that reads preempted from its ``at``-th poll on
+    (the train loop polls it once a step)."""
+    from repro_torch.checkpoint import PreemptionGuard
+
+    class PreemptAt(PreemptionGuard):
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+
+        @property
+        def preempted(self):
+            self.count += 1
+            return self.count >= at
+
+    return PreemptAt()
 
 
 def leaf_sha(x) -> str:
@@ -3543,21 +3621,11 @@ def drive_checkpoint_loop(root: Path, counters: Counters) -> dict:
 
     import repro_torch.checkpoint.versioned as ckv
     from repro_torch import obs
-    from repro_torch.checkpoint import PreemptionGuard, VersionedCheckpointManager
+    from repro_torch.checkpoint import VersionedCheckpointManager
     from repro_torch.data import pipeline as dp
     from repro_torch.launch.train import RunConfig, run_model_config, state_template, train
     from repro_torch.store import VersionStore
     from repro_torch.tree import tree_paths
-
-    class PreemptAt(PreemptionGuard):
-        def __init__(self, at):
-            super().__init__()
-            self.at, self.count = at, 0
-
-        @property
-        def preempted(self):
-            self.count += 1
-            return self.count >= self.at
 
     saved, fed, copy_s = {}, [], []  # save step -> {path: sha256}; batch sha256s
     host_copy, next_tokens = ckv.host_copy, dp.SyntheticTokenPipeline.next_tokens
@@ -3582,7 +3650,7 @@ def drive_checkpoint_loop(root: Path, counters: Counters) -> dict:
     try:
         with obs.tracing() as tracer:
             t0 = time.perf_counter()
-            out1 = train(run, guard=PreemptAt(LOOP_PREEMPT_AT), log_every=10**9, device="cuda")
+            out1 = train(run, guard=preempt_at(LOOP_PREEMPT_AT), log_every=10**9, device="cuda")
             out1["manager"].close()
             out2 = train(run, log_every=10**9, device="cuda")
             train_s = time.perf_counter() - t0
@@ -3689,6 +3757,404 @@ def drive_checkpoint_loop(root: Path, counters: Counters) -> dict:
     return {"repack_s": repack_s, "restore_s": restore_s, "commit_s": commits}
 
 
+# ------------------------------------------ (q) training the MoE and MLA families
+Q_STEPS = 5
+Q_PHI = (2, 4, 2048)     # layers (of 32), batch, sequence
+Q_DS = (3, 2, 1024)      # DeepSeek-V3's 3 dense MLA layers (of 61) and the MTP head
+Q_LAYER_TOKENS = 512     # (q3): one full-width DeepSeek MoE layer, 1 x 512 tokens
+Q_UNREACHED = 4          # (q3): experts whose router column is zeroed, so no route reaches them
+STATE_BYTES = 12         # a param's train state: bf16 param and gradient, f32 mu and nu
+# A layer's gradients (x, the f32 router, each expert or shared stack)
+# against moe_block_plain's autograd gradients on the same input, at
+# drop-free capacity: ||d|| / ||plain|| per leaf.  On an NVIDIA H100 80GB
+# HBM3 (700 W) the sound readings are 0 (q1: Phi-3.5-MoE's layer, bit-equal)
+# and at most 1.79e-3 (q3: DeepSeek's router); the planted fault (the route
+# weights detached) reads 0.446 on x and 1.0 on the router.  The limit is
+# MOE_TOL, a factor 11 over the one and 22 under the other.
+Q_GRAD_TOL = MOE_TOL
+Q_DRIVER_RUN = dict(arch="deepseek-v3-671b", reduced=True, steps=12, seq_len=128,
+                    global_batch=8, save_every=4, max_restore_cost_s=30.0)
+Q_DRIVER_PREEMPT_AT = 6
+
+
+def grad_ratios(got: dict, want: dict) -> dict:
+    return {k: float((got[k].float() - want[k].float()).norm() / want[k].float().norm())
+            for k in want}
+
+
+def layer_grads(cfg, p, x, cot, wrt, block=None) -> dict:
+    """Gradients of ``sum(block(x) * cot)`` (f32) with respect to ``wrt``
+    (names of ``p``, and ``"x"``); a leaf that the output does not reach
+    gets zeros (where a planted fault cuts it off)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    leaves = {**p, "x": x}
+    inputs = [leaves[n].detach().requires_grad_(True) for n in wrt]
+    named = {**p, **dict(zip(wrt, inputs))}
+    x_in = named.pop("x")
+    y = (block or moe.moe_block)(cfg, named, x_in)
+    out = (y.float() * cot.float()).sum()
+    grads = torch.autograd.grad(out, inputs, allow_unused=True, materialize_grads=True)
+    return dict(zip(wrt, grads))
+
+
+def moe_grad_check(phase: str, cfg, p, x) -> dict:
+    """One MoE layer's backward on a real layer input ``x`` at drop-free
+    capacity: each leaf's gradient (x, the router, the expert stacks, the
+    shared expert's) through ``moe_block`` against ``moe_block_plain``'s,
+    within ``Q_GRAD_TOL`` of the norm; then the same with a planted fault
+    (the route weights detached: the router's gradient lost), which must
+    land above the limit."""
+    import torch
+
+    from repro_torch.models import moe
+
+    free = drop_free(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cot = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    wrt = ["x", *sorted(p)]
+    t0 = time.perf_counter()
+    got = layer_grads(free, p, x, cot, wrt)
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    want = layer_grads(free, p, x, cot, wrt, block=moe.moe_block_plain)
+    ratios = grad_ratios(got, want)
+    del got
+    route = moe.route
+
+    def detached(c, logits):
+        top_w, top_e = route(c, logits)
+        return top_w.detach(), top_e
+
+    moe.route = detached
+    try:
+        faulty = grad_ratios(layer_grads(free, p, x, cot, wrt), want)
+    finally:
+        moe.route = route
+    del want
+    torch.cuda.empty_cache()
+    worst = max(ratios.values())
+    log(f"phase {phase}: moe_block's backward against moe_block_plain's on the first MoE "
+        f"layer's input {tuple(x.shape)}, drop-free (C = {moe.capacity(free, x.shape[1])}): "
+        f"||d|| / ||plain|| " + ", ".join(f"{k} {v:.6e}" for k, v in ratios.items())
+        + f" (limit {Q_GRAD_TOL}); with the route weights detached (planted fault): "
+        + ", ".join(f"{k} {v:.6e}" for k, v in faulty.items())
+        + f"; the dispatch's forward and backward {block_s:.6f} s (one call)")
+    check(worst <= Q_GRAD_TOL, f"phase {phase}: a layer gradient is {worst} of the plain's norm "
+          f"(limit {Q_GRAD_TOL})")
+    check(max(faulty.values()) > Q_GRAD_TOL, f"phase {phase}: the planted fault lands under the "
+          f"limit {Q_GRAD_TOL}: {faulty}")
+    return {"ratios": ratios, "fault": faulty}
+
+
+def train_cut_model(counters: Counters, phase: str, name: str, n_layers: int, batch: int,
+                    seq: int) -> dict:
+    """``make_train_step`` at the published widths of ``name`` cut to
+    ``n_layers``: ``Q_STEPS`` steps of ``batch`` x ``seq`` synthetic tokens
+    (the WSD schedule, as phase (k)), each step's wall on CUDA events, then a
+    traced step, one backward on a fresh batch (every leaf's gradient present
+    and finite; the attention, MoE and MTP leaves non-zero) and the chunked
+    CE against the unchunked.  Every MoE layer's recompute in the backward
+    pass must route as its forward did."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.train import RunConfig, train_config
+    from repro_torch.models import get_model, moe
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import chunked_cross_entropy, make_loss_fn, make_train_step
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = moe_model(name, n_layers, phase)
+    bundle = get_model(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_moe = sum(cfg.layer_uses_moe(i) for i in range(cfg.n_layers))
+    state = {"params": params, "opt": init_opt_state(params), "error_fb": None}
+    tcfg = train_config(RunConfig(arch=name, steps=Q_STEPS, schedule="wsd"))
+    step_fn = make_train_step(bundle, tcfg)
+    pipe = SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=SEED,
+                                  device="cuda")
+    C = moe.capacity(cfg, seq) if n_moe else 0
+    counters.zero()
+    marks, metrics, routes = [cuda_event()], [], []
+    for _ in range(Q_STEPS):
+        tokens = pipe.next_batch()
+        with RouteLog() as rl:
+            state, m = step_fn(state, tokens)
+        marks.append(cuda_event())
+        metrics.append(m)
+        routes.append(rl.calls)
+    torch.cuda.synchronize()
+    counts = counters.read(f"phase {phase} (training)", ())
+    check(counts["flash_attention"] == 0,
+          f"phase {phase}: training launched flash_attention {counts['flash_attention']} times")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+    dropped = []
+    for i, calls in enumerate(routes):
+        check(len(calls) == 2 * n_moe, f"phase {phase}: step {i} routed {len(calls)} times, "
+              f"not twice in each of {n_moe} MoE layers (forward, recompute)")
+        same = all(torch.equal(calls[j], calls[2 * n_moe - 1 - j]) for j in range(n_moe))
+        check(same, f"phase {phase}: step {i}: a layer's recompute chose other experts than "
+              "its forward")
+        if n_moe:
+            pos = [moe.positions(e, cfg.n_experts) for e in calls[:n_moe]]
+            dropped.append(float(sum(int((q >= C).sum()) for q in pos)
+                                 / sum(q.numel() for q in pos)))
+    for i, (m, s) in enumerate(zip(metrics, step_s)):
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        check(np.isfinite(loss) and np.isfinite(gn), f"phase {phase}: step {i}: loss {loss}, "
+              f"grad norm {gn}")
+        log(f"phase {phase}: step {i}: loss {loss:.6f}, grad norm {gn:.6f}, lr "
+            f"{m['lr'].item():.6e}, step wall {s:.6f} s"
+            + (f", routes dropped {dropped[i]:.6f}" if n_moe else "")
+            + (" (the first: allocations, cuBLAS plans)" if i == 0 else ""))
+    steady = step_s[1:]
+    mean = sum(steady) / len(steady)
+    fwd = forward_flops(cfg, batch, seq, C + 1)
+    bound_s = 3 * fwd / TENSOR_FLOPS_PER_S
+    log(f"phase {phase}: {cfg.name}, {cfg.n_layers} layers: {n_params} parameters, train state "
+        f"{n_params * STATE_BYTES / 1e9:.1f} GB ({STATE_BYTES} bytes a parameter); batch {batch} "
+        f"x {seq}"
+        + (f" at cf {cfg.capacity_factor} (C = {C}, {n_moe} MoE layers)" if n_moe else "")
+        + f"; steps 1-{Q_STEPS - 1}: mean {mean:.6f} s, min {min(steady):.6f}, max "
+        f"{max(steady):.6f} ({batch * seq / mean:.1f} tokens/s); bound {bound_s:.6f} s "
+        f"({3 * fwd / 1e12:.3f} TFLOP over {TENSOR_FLOPS_PER_S / 1e12:.0f} TFLOP/s; bound / "
+        f"step {bound_s / mean:.4f}); the remat's recompute, outside the bound, "
+        f"{fwd / 1e12:.3f} TFLOP; peak device memory {peak:.3f} GiB")
+
+    # one more step under the profiler
+    tokens = pipe.next_batch()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    counters.zero()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, tokens)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    check(np.isfinite(m["loss"].item()), f"phase {phase}: the traced step's loss is not finite")
+    log(f"phase {phase}: traced step: {busy_share(prof, traced, top=8)}")
+    log(f"phase {phase}: traced step by kernel class: {kernel_classes(prof)}")
+    del prof, m
+
+    # one backward on a fresh batch; the loss's parts; the chunked CE
+    tokens = pipe.next_batch()
+    params = state["params"]
+    names = [k for k, _ in tree_paths(params)]
+    loss_fn = make_loss_fn(bundle, tcfg)
+    loss = loss_fn(params, tokens)
+    grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
+    counts = counters.read(f"phase {phase} (checks)", ())
+    check(counts["flash_attention"] == 0, f"phase {phase}: the checks' backward launched flash")
+    bad = [n for n, g in zip(names, grads) if g is None or not bool(torch.isfinite(g).all())]
+    check(not bad, f"phase {phase}: leaves without a finite gradient: {bad[:8]}")
+    attn = {"wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a", "wkv_b", "router", "w_gate", "w_up",
+            "w_down", "proj"}
+    zero = [n for n, g in zip(names, grads)
+            if (n.rsplit("/", 1)[-1] in attn or n.startswith("mtp/")) and not bool((g != 0).any())]
+    check(not zero, f"phase {phase}: all-zero gradients: {zero}")
+    log(f"phase {phase}: backward on a fresh batch: all {len(names)} leaves' gradients finite; "
+        "gradient norms " + ", ".join(f"{n} {float(g.float().norm()):.6e}"
+                                      for n, g in zip(names, grads)
+                                      if n.startswith("mtp/") or "moe/" in n or "wq" in n))
+    del grads, loss
+    with torch.no_grad():
+        hidden, aux = bundle.train_hidden(params, tokens)
+        t = tokens["tokens"]
+        main = chunked_cross_entropy(bundle.head, params, hidden[:, :-1], t[:, 1:], tcfg.z_loss)
+        total = loss_fn(params, tokens)
+    out = {"step_s": mean, "tokens_s": batch * seq / mean, "bound_s": bound_s, "peak_gib": peak,
+           "dropped": dropped, "n_params": n_params}
+    if "mtp_hidden" in aux:
+        with torch.no_grad():
+            mtp = chunked_cross_entropy(bundle.head, params, aux["mtp_hidden"][:, :-1], t[:, 2:])
+        want = main + tcfg.mtp_weight * mtp
+        rel = abs(total.item() - want.item()) / abs(want.item())
+        log(f"phase {phase}: the loss on a fresh batch {total.item():.9f} = main CE "
+            f"{main.item():.9f} + {tcfg.mtp_weight} x MTP CE {mtp.item():.9f} (relative "
+            f"difference {rel:.3e})")
+        check(rel <= 1e-6, f"phase {phase}: the loss is not the main CE plus the MTP term")
+        log(f"phase {phase}: the MTP term's CE: " + ce_check(
+            phase, bundle.head, params, aux["mtp_hidden"][:, :-1], t[:, 2:], 0.0))
+        out["mtp_ce"], out["main_ce"] = mtp.item(), main.item()
+    else:
+        check(abs(total.item() - main.item()) <= 1e-6 * abs(main.item()),
+              f"phase {phase}: the loss {total.item()} is not the main CE {main.item()}")
+    log(f"phase {phase}: the main CE: " + ce_check(phase, bundle.head, params, hidden[:, :-1],
+                                                   t[:, 1:], tcfg.z_loss))
+    if n_moe:
+        out["layer"] = moe_grad_check(phase, cfg, *moe_layer_input(drop_free(cfg), params,
+                                                                   t[:1]))
+    del state, params, hidden, aux, bundle, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def cuda_event():
+    """A timing event recorded on the current stream."""
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def deepseek_moe_layer(counters: Counters) -> dict:
+    """(q3): one DeepSeek-V3 MoE layer at its published widths (256 experts
+    top 8 of d_ff 2048, one shared expert, d 7168: 11.5 B parameters), one
+    forward and backward of 1 x ``Q_LAYER_TOKENS`` seeded N(0, 1) bf16
+    inputs at drop-free capacity with no optimizer; ``Q_UNREACHED`` experts'
+    router columns are zeroed (a gate of 1 / sum, under every top-8 gate), so
+    that no route reaches them.  The gradients of x, the router and the
+    shared expert are held against ``moe_block_plain``'s (run with the expert
+    stacks frozen: their gradients would not fit beside the dispatch's);
+    every expert stack's gradient must be finite, exactly zero for each
+    expert no route reached and non-zero for the rest."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    cfg = drop_free(ARCHS[DS_ARCH])
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    t0 = time.perf_counter()
+    p = tf.block_init(cfg, "mla", True, gen, device="cuda")["moe"]
+    p["router"][:, -Q_UNREACHED:] = 0
+    x = torch.randn((1, Q_LAYER_TOKENS, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in p.values())
+    with torch.no_grad():
+        top_e = moe.route(cfg, moe.router_logits(p, x))[1]
+    reached = torch.zeros(cfg.n_experts, dtype=torch.bool, device="cuda")
+    reached[top_e.reshape(-1)] = True
+    C = moe.capacity(cfg, Q_LAYER_TOKENS)
+    check(not bool(reached[-Q_UNREACHED:].any()), "phase q3: a zeroed router column was chosen")
+    counters.zero()
+    experts = ["w_gate", "w_up", "w_down"]
+    shared = ["shared_w_gate", "shared_w_up", "shared_w_down"]
+    start = cuda_event()
+    got = layer_grads(cfg, p, x, cot, ["x", "router", *shared, *experts])
+    end = cuda_event()
+    end.synchronize()
+    wall = start.elapsed_time(end) / 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_expert = {}
+    for n in experts:
+        g = got.pop(n)
+        check(bool(torch.isfinite(g).all()), f"phase q3: {n}'s gradient is not finite")
+        per_expert[n] = g.flatten(1).abs().amax(1) > 0
+        del g
+    torch.cuda.empty_cache()
+    for n, nonzero in per_expert.items():
+        check(torch.equal(nonzero, reached), f"phase q3: {n}: the experts with a non-zero "
+              f"gradient ({int(nonzero.sum())}) are not the {int(reached.sum())} reached")
+    want = layer_grads(cfg, p, x, cot, ["x", "router", *shared], block=moe.moe_block_plain)
+    counters.read("phase q3 (DeepSeek MoE layer)", ())
+    ratios = grad_ratios(got, want)
+    fwd = (2 * cfg.d_model * cfg.n_experts * Q_LAYER_TOKENS
+           + 2 * 3 * cfg.d_model * cfg.expert_d_ff * (cfg.n_experts * (C + 1) + Q_LAYER_TOKENS))
+    log(f"phase q3: {DS_ARCH}'s MoE layer at its published widths ({cfg.n_experts} experts top "
+        f"{cfg.top_k} of d_ff {cfg.expert_d_ff}, {cfg.n_shared_experts} shared, d "
+        f"{cfg.d_model}): {n_params} parameters; 1 x {Q_LAYER_TOKENS} tokens drop-free (C = {C}, "
+        f"buffers ({cfg.n_experts}, 1, {C + 1}, {cfg.d_model})): the dispatch's forward and "
+        f"backward {wall:.6f} s (CUDA events, one call, the first), bound "
+        f"{3 * fwd / TENSOR_FLOPS_PER_S:.6f} s ({3 * fwd / 1e12:.3f} TFLOP); peak device memory "
+        f"{peak:.3f} GiB; {int(reached.sum())} of {cfg.n_experts} experts reached (the "
+        f"{Q_UNREACHED} zeroed not), each stack's gradient zero exactly where no route reached; "
+        f"||d|| / ||plain|| " + ", ".join(f"{k} {v:.6e}" for k, v in ratios.items())
+        + f" (limit {Q_GRAD_TOL})")
+    check(max(ratios.values()) <= Q_GRAD_TOL, f"phase q3: gradients off the plain's: {ratios}")
+    del p, x, cot, got, want
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "peak_gib": peak, "ratios": ratios}
+
+
+def drive_reduced_driver(root: Path, counters: Counters) -> dict:
+    """(q4): ``launch.train.train`` on reduced DeepSeek-V3 with saves, a
+    preemption (an emergency save) and a resume; every save restored cold
+    from a freshly opened store must equal its host copy leaf for leaf (a
+    sha256 each: the f32 routers and the MTP head's subtree among them), and
+    ``changed_block_mask`` must launch (each commit diffs against its
+    parent)."""
+    import torch
+
+    import repro_torch.checkpoint.versioned as ckv
+    from repro_torch.checkpoint import VersionedCheckpointManager
+    from repro_torch.launch.train import RunConfig, run_model_config, state_template, train
+    from repro_torch.tree import tree_paths
+
+    saved = {}
+    host_copy = ckv.host_copy
+
+    def recording_copy(state):
+        host = host_copy(state)
+        saved[int(host["data"]["step"]) - 1] = {k: leaf_sha(v) for k, v in tree_paths(host)}
+        return host
+
+    ckpt = root / "moe_ckpt"
+    run = RunConfig(**Q_DRIVER_RUN, seed=SEED, ckpt_dir=str(ckpt))
+    cfg = run_model_config(run)
+    counters.zero()
+    ckv.host_copy = recording_copy
+    try:
+        t0 = time.perf_counter()
+        out1 = train(run, guard=preempt_at(Q_DRIVER_PREEMPT_AT), log_every=10**9, device="cuda")
+        out1["manager"].close()
+        out2 = train(run, log_every=10**9, device="cuda")
+        out2["manager"].close()
+        train_s = time.perf_counter() - t0
+    finally:
+        ckv.host_copy = host_copy
+    check(out1["preempted"] and out1["steps_done"] == Q_DRIVER_PREEMPT_AT,
+          f"phase q4: preempted {out1['preempted']} after {out1['steps_done']} steps")
+    losses = out1["losses"] + out2["losses"]
+    check(len(losses) == run.steps and bool(np.isfinite(losses).all()),
+          f"phase q4: {len(losses)} losses, finite {np.isfinite(losses).all()}")
+    cold = VersionedCheckpointManager(ckpt, device="cuda")
+    check(sorted(cold.step_to_vid) == sorted(saved),
+          f"phase q4: steps {sorted(cold.step_to_vid)} in the store, {sorted(saved)} saved")
+    template = state_template(cfg)
+    keys = set()
+    for step in sorted(saved):
+        got = cold.restore(template, step=step)
+        digests = {k: leaf_sha(v) for k, v in tree_paths(got)}
+        keys |= set(digests)
+        check(digests == saved[step], f"phase q4: step {step}: "
+              f"{sum(digests.get(k) != v for k, v in saved[step].items())} leaves differ")
+        router = [v for k, v in tree_paths(got) if k.endswith("moe/router")]
+        check(bool(router) and all(v.dtype == torch.float32 for v in router),
+              f"phase q4: step {step}: the restored routers are not f32")
+    cold.close()
+    check(any(k.startswith("params/mtp/") for k in keys), "phase q4: no MTP leaf was restored")
+    counts = counters.read("phase q4 (reduced driver)", ("changed_block_mask",))
+    log(f"phase q4: {cfg.name}, {run.steps} steps (preempted at {Q_DRIVER_PREEMPT_AT - 1}, "
+        f"resumed) in {train_s:.3f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; saves at steps "
+        f"{sorted(saved)}, each restored cold leaf for leaf ({len(keys)} leaves, the f32 routers "
+        f"and the MTP head's among them); changed_block_mask {counts['changed_block_mask']} "
+        f"launches, chain_delta_apply {counts['chain_delta_apply']} (every save is stored whole, "
+        f"as in phase l)")
+    return {"train_s": train_s, "launches": counts}
+
+
+def drive_moe_training(root: Path, counters: Counters) -> dict:
+    """Phase (q): (q1) Phi-3.5-MoE and (q2) DeepSeek-V3 trained at their
+    published widths, depth cut; (q3) DeepSeek's full-width MoE layer's
+    backward; (q4) the reduced driver with saves and a resume."""
+    out = {"q1": train_cut_model(counters, "q1", PHI_ARCH, *Q_PHI)}
+    out["q2"] = train_cut_model(counters, "q2", DS_ARCH, *Q_DS)
+    out["q3"] = deepseek_moe_layer(counters)
+    out["q4"] = drive_reduced_driver(root, counters)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3753,6 +4219,8 @@ def main(argv=None) -> int:
     phase("p", drive_encdec, counters)
     with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
         phase("k", drive_training, Path(tmp), counters)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
+        phase("q", drive_moe_training, Path(tmp), counters)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"total wall {time.perf_counter() - start:.3f} s")
 

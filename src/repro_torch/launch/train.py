@@ -15,6 +15,9 @@ The loop:
 * repack: every ``repack_every`` saves, re-optimize the storage graph with
   the paper's solver (Problem 6 with the restore-latency SLA θ), on the card.
 
+It trains the dense decoder configs and the MoE and MLA families
+(DeepSeek-V3 with its MTP loss, Phi-3.5-MoE); the recurrent and enc-dec
+families raise before anything is drawn, naming ROADMAP Queue 1 item 3c.
 It runs on the card; ``device="cpu"`` (``--device cpu``) runs the plain
 PyTorch versions, at the reduced configs the JAX package's examples use.
 """
@@ -81,7 +84,9 @@ def train_config(run: RunConfig) -> TrainConfig:
 
 def state_template(cfg) -> Dict[str, Any]:
     """The saved state's structure as ``(shape, dtype)`` leaves, from the
-    config's shapes alone: nothing is allocated."""
+    config's shapes alone: nothing is allocated.  Each param keeps its own
+    dtype (bf16; the MoE routers f32) and the MTP head's subtree is there
+    when the config has one; the moments are f32."""
     scalar = ((), torch.int32)
     moments = tf.param_shapes(cfg, torch.float32)
     return {
@@ -107,11 +112,10 @@ def train(run: RunConfig, *, guard: Optional[PreemptionGuard] = None,
             f"{cfg.name}: training the encoder-decoder family (its batches carry frames, "
             "which the synthetic pipeline does not make) waits for ROADMAP Queue 1 item "
             "3c; it serves")
-    if cfg.n_experts or {"mla", "rglru", "rwkv"} & set(cfg.blocks()):
+    if {"rglru", "rwkv"} & set(cfg.blocks()):
         raise NotImplementedError(
-            f"{cfg.name}: training the MoE, MLA and recurrent families (their backward: "
-            "the MTP loss, the associative and WKV scans) waits for its slice (ROADMAP "
-            "Queue 1, other model families); they serve")
+            f"{cfg.name}: training the recurrent families (the backward of the associative "
+            "and WKV scans) waits for ROADMAP Queue 1 item 3c; they serve")
     bundle = get_model(cfg)
     step_fn = make_train_step(bundle, train_config(run))
 

@@ -87,6 +87,21 @@ def _shared(p: Params, x: torch.Tensor) -> torch.Tensor:
                           "w_down": p["shared_w_down"]})
 
 
+def _combine(out_buf: torch.Tensor, top_e, b_idx, slot, keep,
+             top_w: torch.Tensor) -> torch.Tensor:
+    """Gather each route's expert output (B, S, K, D), zero the dropped ones
+    (those in the overflow bin), and sum over the K routes at their weights.
+
+    Under autograd the bin gets an exactly zero cotangent through the mask,
+    so the duplicate writes into it pass none back to ``x``, as JAX's sliced
+    off bin passes none."""
+    gathered = out_buf[top_e, b_idx, slot]                  # (B, S, K, D)
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros((), dtype=out_buf.dtype, device=out_buf.device))
+    # a bf16 contraction over K: exact f32 products, an f32 sum, one rounding
+    return torch.einsum("bskd,bsk->bsd", gathered.float(), top_w.float()).to(out_buf.dtype)
+
+
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -110,12 +125,7 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     # ---- expert compute ----------------------------------------------------
     out_buf = _expert_ffn(buf.view(E, B * (C + 1), D), p).view(E, B, C + 1, D)
 
-    # ---- combine: gather + weighted sum over the K routes ------------------
-    gathered = out_buf[top_e, b_idx, slot]                  # (B, S, K, D)
-    gathered = torch.where(keep[..., None], gathered, torch.zeros((), dtype=x.dtype,
-                                                                   device=x.device))
-    # a bf16 contraction over K: exact f32 products, an f32 sum, one rounding
-    y = torch.einsum("bskd,bsk->bsd", gathered.float(), top_w.float()).to(x.dtype)
+    y = _combine(out_buf, top_e, b_idx, slot, keep, top_w)
 
     # ---- shared experts (DeepSeek) -----------------------------------------
     if cfg.n_shared_experts:

@@ -10,15 +10,19 @@ JAX scans a segment, the port loops over the stack index in Python.  In
 training (``mode="train"`` under autograd) each layer runs inside
 ``torch.utils.checkpoint``, the JAX package's default ``full`` remat policy:
 only each layer's input is kept, and the layer is recomputed in the backward
-pass.  The ``REPRO_REMAT_POLICY=dots`` knob has no counterpart yet (ROADMAP
-Queue 1).
+pass.  An MoE layer routes again in its recompute, on the same input, and so
+takes the same experts; the checkpoint compares shapes only, so the tests
+hold the gradients bit for bit against a run without remat, and the chip
+smoke run compares each recompute's routes with its forward's.  The
+``REPRO_REMAT_POLICY=dots`` knob has no counterpart yet (ROADMAP Queue 1).
 
 Block kinds: ``attn`` (GQA, with ``cfg.attn_window`` a sliding window),
 ``mla`` (DeepSeek) and ``rglru`` (Griffin), each paired with an MLP or an
 MoE (``cfg.layer_uses_moe``), and ``rwkv`` (RWKV-6), which carries its own
 channel mix.  With ``cfg.mtp`` the tree has DeepSeek's
 multi-token-prediction head (``mtp``), whose hidden states the forward pass
-returns in its aux.  The expert-parallel MoE waits for the pod tooling
+returns in its aux; its block runs outside the per-layer remat, as in the
+JAX package.  The expert-parallel MoE waits for the pod tooling
 (ROADMAP Queue 1) and raises.
 """
 

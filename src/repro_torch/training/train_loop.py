@@ -13,12 +13,15 @@ donated state).  Features:
 * optional **int8 gradient compression with error feedback**
   (:mod:`repro_torch.distributed.compression`).
 
+With an MTP head (DeepSeek) the loss adds ``mtp_weight`` times the chunked
+CE of the head's hidden states against the tokens two ahead, with no z-loss
+on that term, as the JAX package's loss does; like it, the loss has no
+load-balancing term.
+
 The step launches no hand-written kernel: attention under autograd takes the
 chunked softmax, as the JAX package's training does
-(``models.attention._full_attention``).  DeepSeek's MTP loss, and training
-the MoE and MLA families, wait for their slice (ROADMAP Queue 1, other model
-families): the loss raises on an aux holding ``mtp_hidden`` rather than drop
-that term.  ``mtp_weight`` is kept so the configs match.
+(``models.attention._full_attention``), MLA's included, and the MoE layers
+differentiate through their dispatch (``models.moe.moe_block``).
 """
 
 from __future__ import annotations
@@ -97,14 +100,16 @@ def chunked_cross_entropy(head_fn, params, hidden: torch.Tensor,
 def make_loss_fn(bundle: ModelBundle, tcfg: TrainConfig):
     def loss_fn(params, batch):
         hidden, aux = bundle.train_hidden(params, batch)
-        if "mtp_hidden" in aux:
-            raise NotImplementedError(
-                f"{bundle.cfg.name}: the MTP loss waits for its slice (ROADMAP Queue 1, "
-                "other model families); the loss would drop it")
         tokens = batch["tokens"]
-        return chunked_cross_entropy(
+        loss = chunked_cross_entropy(
             bundle.head, params, hidden[:, :-1], tokens[:, 1:], tcfg.z_loss
         )
+        if "mtp_hidden" in aux:
+            # mtp_hidden[:, s] predicts token s + 2 (from h_s and emb(token s + 1))
+            loss = loss + tcfg.mtp_weight * chunked_cross_entropy(
+                bundle.head, params, aux["mtp_hidden"][:, :-1], tokens[:, 2:], 0.0
+            )
+        return loss
 
     return loss_fn
 
@@ -116,8 +121,10 @@ def make_train_step(
     then compression, then :func:`adamw_update`.  Returns ``(state,
     metrics)``; the metrics (loss, lr, grad norm) are 0-d tensors on the
     device, so the caller decides when the host waits for them.  A param that
-    gets no gradient raises: every param of a dense config feeds the loss,
-    so a missing gradient means a broken graph."""
+    gets no gradient raises: every param of every config the port trains
+    feeds the loss (the MTP head's through its term; an expert that no route
+    reached through the stacked expert weights, as a zero), so a missing
+    gradient means a broken graph."""
     loss_fn = make_loss_fn(bundle, tcfg)
 
     def grads_of(params, leaves, batch):

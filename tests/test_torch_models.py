@@ -27,6 +27,7 @@ from repro.models import attention as jax_attention
 from repro.models import get_model as jax_get_model
 from repro.models import layers as jax_layers
 from repro.models import transformer as jax_tf
+from repro.training import train_loop as jax_tl
 from repro_torch.configs import ARCHS
 from repro_torch.models import count_params, get_model
 from repro_torch.models import attention as port_attention
@@ -287,11 +288,12 @@ def test_init_params_tree_matches_jax(name):
 @pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "rwkv6-3b",
                                   "recurrentgemma-9b", "seamless-m4t-medium"])
 def test_other_families_raise(name, tmp_path, monkeypatch):
-    """What the port does not run yet raises, naming its ROADMAP item: for
-    the two MoE archs, which serve, Phi-3.5-MoE's expert-parallel form
-    (``moe_impl="ep"``) and DeepSeek's MTP loss (the train loss would drop
-    it); for the recurrent and enc-dec families, which serve, their training
-    (``launch.train.train`` refuses them before it draws a parameter)."""
+    """What the port does not run yet raises, naming its ROADMAP item:
+    Phi-3.5-MoE's expert-parallel form (``moe_impl="ep"``); for the recurrent
+    and enc-dec families, which serve, their training (``launch.train.train``
+    refuses them before it draws a parameter, naming Queue 1 item 3c).
+    DeepSeek's train loss, which once raised rather than drop the MTP term,
+    now includes it and equals JAX's on the same weights and tokens."""
     if name not in ARCHS:
         pytest.fail(f"{name} is not an arch: {sorted(ARCHS)}")
     cfg = ARCHS[name]
@@ -300,12 +302,20 @@ def test_other_families_raise(name, tmp_path, monkeypatch):
             get_model(dataclasses.replace(cfg, moe_impl="ep"))
         return
     if name == "deepseek-v3-671b":
+        model = jax_get_model(JAX_ARCHS[name].reduced())
+        pj = model.init(jax.random.PRNGKey(0))
+        tokens = np.random.RandomState(6).randint(0, 512, (1, 16)).astype(np.int32)
+        want = float(jax.jit(jax_tl.make_loss_fn(model, jax_tl.TrainConfig()))(
+            pj, {"tokens": jnp.asarray(tokens)}))
         bundle = get_model(cfg.reduced())
-        params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
-        tokens = torch.zeros((1, 8), dtype=torch.int64)
-        assert "mtp_hidden" in bundle.train_hidden(params, {"tokens": tokens})[1]
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            make_loss_fn(bundle, TrainConfig())(params, {"tokens": tokens})
+        params = params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
+        batch = {"tokens": torch.from_numpy(tokens).long()}
+        assert "mtp_hidden" in bundle.train_hidden(params, batch)[1]
+        with torch.no_grad():
+            got = make_loss_fn(bundle, TrainConfig())(params, batch).item()
+            main = make_loss_fn(bundle, TrainConfig(mtp_weight=0.0))(params, batch).item()
+        np.testing.assert_allclose(got, want, rtol=1e-3)
+        assert got - main > 0.3  # 0.3 x the MTP head's CE (~ln 512) is in the loss
         return
     if name in ("rwkv6-3b", "recurrentgemma-9b"):
         bundle = get_model(cfg.reduced())
@@ -314,7 +324,7 @@ def test_other_families_raise(name, tmp_path, monkeypatch):
         logits, _ = bundle.prefill(params, {"tokens": tokens},
                                    bundle.init_cache(1, 9, device="cpu"))
         assert tuple(logits.shape) == (1, 1, cfg.reduced().padded_vocab)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3c"):
             train(RunConfig(arch=name, steps=1, ckpt_dir=str(tmp_path)), device="cpu")
         return
     # the enc-dec family serves (tests/test_torch_encdec.py) and does not train

@@ -12,7 +12,9 @@ from repro_torch.checkpoint import PreemptionGuard
 from repro_torch.data.pipeline import SyntheticTokenPipeline
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.train import RunConfig, train
+from repro_torch.models.convert import train_state_to_numpy
 from repro_torch.training.elastic import HostTopology, StragglerPolicy
+from repro_torch.tree import tree_paths
 
 
 class PreemptAt(PreemptionGuard):
@@ -86,11 +88,41 @@ class TestDriver:
 
     @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b"])
     def test_moe_and_mla_families_do_not_train_yet(self, tmp_path, arch):
-        """They serve; their training (MoE and MLA backward, the MTP loss)
-        waits for its slice, and the driver says so before it draws a
-        parameter."""
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            train(RunConfig(arch=arch, steps=1, ckpt_dir=str(tmp_path)), device="cpu")
+        """The MoE and MLA families, which the driver once refused, train:
+        reduced DeepSeek-V3 (MLA, its MTP loss) and Phi-3.5-MoE through
+        saves, a preemption and a resume.  The state the emergency save
+        stored comes back leaf for leaf, bit for bit, with its dtypes (the f32
+        routers, the MTP head's subtree), and the resumed run ends where an
+        uninterrupted stream would."""
+        common = dict(arch=arch, reduced=True, steps=6, seq_len=32, global_batch=2,
+                      save_every=2, ckpt_dir=str(tmp_path), max_restore_cost_s=30.0)
+        out1 = train(RunConfig(**common), guard=PreemptAt(at=3), log_every=100, device="cpu")
+        assert out1["preempted"] and out1["steps_done"] == 3
+        mgr = out1["manager"]
+        saved = train_state_to_numpy({k: out1["final_state"][k] for k in ("params", "opt")})
+        restored = train_state_to_numpy(mgr.restore(train_mod.state_template(
+            train_mod.run_model_config(RunConfig(**common)))))
+        paths = [k for k, _ in tree_paths(saved)]
+        assert paths == [k for k, _ in tree_paths({"params": restored["params"],
+                                                   "opt": restored["opt"]})]
+        assert any(k.endswith("moe/router") for k in paths)
+        assert any(k.startswith("params/mtp/") for k in paths) == (arch == "deepseek-v3-671b")
+        for (k, a), (_, b) in zip(tree_paths(saved), tree_paths(
+                {"params": restored["params"], "opt": restored["opt"]})):
+            assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), k
+            if k.endswith("moe/router") and k.startswith("params/"):
+                assert a.dtype == np.float32
+        mgr.close()
+
+        out2 = train(RunConfig(**common), log_every=100, device="cpu")
+        assert not out2["preempted"] and out2["steps_done"] == 3
+        losses = out1["losses"] + out2["losses"]
+        assert len(losses) == 6 and np.isfinite(losses).all()
+        ref = SyntheticTokenPipeline(vocab=512, seq_len=32, global_batch=2, device="cpu")
+        for _ in range(6):
+            ref.next_tokens()
+        assert out2["pipe"].snapshot() == ref.snapshot()
+        out2["manager"].close()
 
 
 class TestHostTopology:
