@@ -315,7 +315,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefghijklmnopq"
+PHASES = "abcdefghijklmnopqr"
 
 
 def log(msg: str) -> None:
@@ -2789,17 +2789,21 @@ WKV_TOL = 1e-4     # the chunked WKV against the scan, ||d|| / ||scan||
 FORMS_TOL = 0.06
 
 
-def recurrent_model(name: str):
-    """The published config of ``name`` at its full width and depth, its
-    parameters drawn on the card from a seeded generator; the tree must
-    number ``count_params``, plus the twelve D-vectors a layer it leaves out
-    for RWKV-6 (ROADMAP Queue 3)."""
+def recurrent_model(name: str, n_layers: int = 0, phase: str = "o"):
+    """The published config of ``name`` at its full width and depth (or cut
+    to ``n_layers``), its parameters drawn on the card from a seeded
+    generator; the tree must number ``count_params``, plus the twelve
+    D-vectors a layer it leaves out for RWKV-6 (ROADMAP Queue 3)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import ARCHS
     from repro_torch.models import count_params, get_model
 
     cfg = ARCHS[name]
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED),
                                  device="cuda")
@@ -2808,9 +2812,12 @@ def recurrent_model(name: str):
     n_norms = sum(t.numel() for name_, t in _leaves(params) if "norm" in name_)
     pad = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     left_out = 12 * cfg.d_model * cfg.n_layers if "rwkv" in cfg.blocks() else 0
-    log(f"phase o: {cfg.name} at its published widths and depth ({cfg.n_layers} layers, "
-        f"pattern {'/'.join(cfg.layer_pattern)}, d {cfg.d_model}, {cfg.n_heads} heads, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}"
+    full = ARCHS[name].n_layers
+    depth = (f"widths, depth cut from {full} to {cfg.n_layers} layers (" if cfg.n_layers != full
+             else f"widths and depth ({cfg.n_layers} layers, ")
+    log(f"phase {phase}: {cfg.name} at its published {depth}pattern "
+        f"{'/'.join(cfg.layer_pattern)}, d {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}"
         + (f", lru width {cfg.lru_width}, window {cfg.attn_window}, {cfg.n_kv_heads} KV "
            f"head of {cfg.resolved_head_dim}" if cfg.lru_width else
            f", heads of {cfg.rwkv_head_dim}, LoRA ranks {cfg.rwkv_shift_lora}/"
@@ -2819,7 +2826,7 @@ def recurrent_model(name: str):
         f"{count_params(cfg)} + {left_out} left out), {n_params * 2 / 1e9:.3f} GB bf16, drawn "
         f"on the card in {time.perf_counter() - t0:.3f} s")
     check(n_params - n_norms == count_params(cfg) + pad + left_out,
-          f"phase o: {n_params - n_norms} parameters against count_params "
+          f"phase {phase}: {n_params - n_norms} parameters against count_params "
           f"{count_params(cfg)} + {pad} padding + {left_out} left out")
     return cfg, params
 
@@ -3399,26 +3406,39 @@ CE_GRAD_RTOL = 1e-2
 ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
 
 
-def forward_flops(cfg, batch: int, seq: int, capacity_slots: int = 0) -> float:
+def forward_flops(cfg, batch: int, seq: int, capacity_slots: int = 0, enc_seq: int = 0) -> float:
     """Matmul operations of one forward pass, counted from the shapes: 2 x
-    each weight x the tokens it multiplies, and causal attention's QK^T and
-    PV over the S(S+1)/2 (query, key) pairs a sequence needs.  Each layer's
-    GQA or MLA attention (MLA's five projections, its QK^T at nd + rd and PV
-    at vd), its MLP (SwiGLU or GELU) or MoE layer (the f32 router, the
-    shared expert per token, and the routed experts over all the dispatch's
-    E x B x (C + 1) buffer rows, ``capacity_slots`` = C + 1: the slots it
-    computes, the overflow bin and empty slots included), the LM head over
-    the B x (S - 1) positions that have a target, and with an MTP head its
-    projection (2D -> D), one dense block over S - 1 positions and its head
-    over B x (S - 2).  A train step needs 3 of them (the forward and the
-    backward's two); the remat's recompute of every layer and CE chunk is a
-    fourth, a choice of this implementation that the bound does not count."""
+    each weight x the tokens it multiplies, and attention's QK^T and PV over
+    the (query, key) pairs a sequence needs: S(S+1)/2 causal, W(W+1)/2 + (S -
+    W) W in a sliding window W (RecurrentGemma's attention layers), S x S_enc
+    across (the enc-dec decoder's cross-attention) and S_enc^2 in the
+    non-causal encoder.  Each layer's GQA or MLA attention (MLA's five
+    projections, its QK^T at nd + rd and PV at vd), RG-LRU block (its two
+    input branches and output projection; the width-4 conv and the scan are
+    elementwise), RWKV-6 block (the five D x D projections, the token-shift
+    and decay LoRAs, the WKV's r S and k^T v products, 2 x 2 x hd^2 a token
+    and head, and the channel mix), its MLP (SwiGLU or GELU) or MoE layer
+    (the f32 router, the shared expert per token, and the routed experts
+    over all the dispatch's E x B x (C + 1) buffer rows, ``capacity_slots``
+    = C + 1: the slots it computes, the overflow bin and empty slots
+    included), with ``enc_seq`` the encoder stack over ``enc_seq`` frames and
+    each decoder layer's cross-attention (its K/V projections over the
+    frames), the LM head over the B x (S - 1) positions that have a target,
+    and with an MTP head its projection (2D -> D), one dense block over S - 1
+    positions and its head over B x (S - 2).  A train step needs 3 of them
+    (the forward and the backward's two); the remat's recompute of every
+    layer and CE chunk is a fourth, a choice of this implementation that the
+    bound does not count.  All of it is counted at the bf16 tensor rate,
+    though the WKV runs in f32: the bound stays a lower one."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     rd, nd, vd = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
+    W = cfg.attn_window
 
-    def attention(kind, tokens, s):
-        pairs = batch * s * (s + 1) / 2
+    def attention(kind, tokens, s, pairs=None):
+        if pairs is None:
+            pairs = batch * (s * (s + 1) / 2 if not W or s <= W
+                             else W * (W + 1) / 2 + (s - W) * W)
         if kind == "mla":
             w = D * qr + qr * H * (nd + rd) + D * (kvr + rd) + kvr * H * (nd + vd) + H * vd * D
             return 2 * w * tokens + 2 * H * (nd + rd + vd) * pairs
@@ -3432,10 +3452,28 @@ def forward_flops(cfg, batch: int, seq: int, capacity_slots: int = 0) -> float:
         return (2 * D * cfg.n_experts * tokens + 2 * shared * tokens
                 + 2 * 3 * D * cfg.expert_d_ff * rows)
 
+    def rwkv(tokens):
+        sl, dl, rh = cfg.rwkv_shift_lora, cfg.rwkv_decay_lora, cfg.rwkv_head_dim
+        time_mix = 5 * D * D + 2 * 5 * D * sl + 2 * D * dl
+        return (2 * (time_mix + 2 * D * cfg.d_ff + D * D) * tokens
+                + 2 * 2 * (D // rh) * rh * rh * tokens)
+
+    def block(i, kind, tokens):
+        if kind == "rwkv":  # carries its own channel mix
+            return rwkv(tokens)
+        mixer = (2 * 3 * D * cfg.lru_width * tokens if kind == "rglru"
+                 else attention(kind, tokens, seq))
+        return mixer + mlp(cfg.layer_uses_moe(i), tokens)
+
     tokens = batch * seq
-    total = sum(attention(kind, tokens, seq) + mlp(cfg.layer_uses_moe(i), tokens)
-                for i, kind in enumerate(cfg.blocks()))
+    total = sum(block(i, kind, tokens) for i, kind in enumerate(cfg.blocks()))
     total += 2 * D * cfg.padded_vocab * batch * (seq - 1)
+    if enc_seq:
+        enc_tokens = batch * enc_seq
+        total += cfg.enc_layers * (attention("attn", enc_tokens, enc_seq, batch * enc_seq ** 2)
+                                   + mlp(False, enc_tokens))
+        total += cfg.n_layers * (2 * 2 * D * H * hd * tokens + 2 * 2 * D * KV * hd * enc_tokens
+                                 + 2 * 2 * H * hd * batch * seq * enc_seq)
     if cfg.mtp:
         m = batch * (seq - 1)
         total += (2 * 2 * D * D * m + attention(cfg.blocks()[-1], m, seq - 1) + mlp(False, m)
@@ -3849,6 +3887,25 @@ def moe_grad_check(phase: str, cfg, p, x) -> dict:
     return {"ratios": ratios, "fault": faulty}
 
 
+def traced_step(counters: Counters, phase: str, step_fn, state, batch):
+    """One more train step under torch.profiler: its wall, the device's busy
+    share and the top kernels, and the device time by kernel class."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    counters.zero()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    check(np.isfinite(m["loss"].item()), f"phase {phase}: the traced step's loss is not finite")
+    log(f"phase {phase}: traced step: {busy_share(prof, traced, top=8)}")
+    log(f"phase {phase}: traced step by kernel class: {kernel_classes(prof)}")
+    return state
+
+
 def train_cut_model(counters: Counters, phase: str, name: str, n_layers: int, batch: int,
                     seq: int) -> dict:
     """``make_train_step`` at the published widths of ``name`` cut to
@@ -3926,20 +3983,7 @@ def train_cut_model(counters: Counters, phase: str, name: str, n_layers: int, ba
         f"step {bound_s / mean:.4f}); the remat's recompute, outside the bound, "
         f"{fwd / 1e12:.3f} TFLOP; peak device memory {peak:.3f} GiB")
 
-    # one more step under the profiler
-    tokens = pipe.next_batch()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    counters.zero()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, m = step_fn(state, tokens)
-        torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
-    check(np.isfinite(m["loss"].item()), f"phase {phase}: the traced step's loss is not finite")
-    log(f"phase {phase}: traced step: {busy_share(prof, traced, top=8)}")
-    log(f"phase {phase}: traced step by kernel class: {kernel_classes(prof)}")
-    del prof, m
+    state = traced_step(counters, phase, step_fn, state, pipe.next_batch())
 
     # one backward on a fresh batch; the loss's parts; the chunked CE
     tokens = pipe.next_batch()
@@ -4077,13 +4121,16 @@ def deepseek_moe_layer(counters: Counters) -> dict:
     return {"wall_s": wall, "peak_gib": peak, "ratios": ratios}
 
 
-def drive_reduced_driver(root: Path, counters: Counters) -> dict:
-    """(q4): ``launch.train.train`` on reduced DeepSeek-V3 with saves, a
-    preemption (an emergency save) and a resume; every save restored cold
-    from a freshly opened store must equal its host copy leaf for leaf (a
-    sha256 each: the f32 routers and the MTP head's subtree among them), and
-    ``changed_block_mask`` must launch (each commit diffs against its
-    parent)."""
+def drive_reduced_driver(root: Path, counters: Counters, phase: str = "q4",
+                         run_kw: dict = Q_DRIVER_RUN,
+                         preempt: int = Q_DRIVER_PREEMPT_AT) -> dict:
+    """(q4, r4): ``launch.train.train`` on a reduced config (DeepSeek-V3 in
+    q4) with saves, a preemption (an emergency save) and a resume; every save
+    restored cold from a freshly opened store must equal its host copy leaf
+    for leaf (a sha256 each), every param the run trained in f32 (the
+    routers; the recurrent blocks' vectors) restored as f32, the MTP head's
+    subtree there where the config has one, and ``changed_block_mask`` must
+    launch (each commit diffs against its parent)."""
     import torch
 
     import repro_torch.checkpoint.versioned as ckv
@@ -4099,48 +4146,52 @@ def drive_reduced_driver(root: Path, counters: Counters) -> dict:
         saved[int(host["data"]["step"]) - 1] = {k: leaf_sha(v) for k, v in tree_paths(host)}
         return host
 
-    ckpt = root / "moe_ckpt"
-    run = RunConfig(**Q_DRIVER_RUN, seed=SEED, ckpt_dir=str(ckpt))
+    ckpt = root / f"{run_kw['arch']}_ckpt"
+    run = RunConfig(**run_kw, seed=SEED, ckpt_dir=str(ckpt))
     cfg = run_model_config(run)
     counters.zero()
     ckv.host_copy = recording_copy
     try:
         t0 = time.perf_counter()
-        out1 = train(run, guard=preempt_at(Q_DRIVER_PREEMPT_AT), log_every=10**9, device="cuda")
+        out1 = train(run, guard=preempt_at(preempt), log_every=10**9, device="cuda")
         out1["manager"].close()
         out2 = train(run, log_every=10**9, device="cuda")
         out2["manager"].close()
         train_s = time.perf_counter() - t0
     finally:
         ckv.host_copy = host_copy
-    check(out1["preempted"] and out1["steps_done"] == Q_DRIVER_PREEMPT_AT,
-          f"phase q4: preempted {out1['preempted']} after {out1['steps_done']} steps")
+    check(out1["preempted"] and out1["steps_done"] == preempt,
+          f"phase {phase}: preempted {out1['preempted']} after {out1['steps_done']} steps")
     losses = out1["losses"] + out2["losses"]
     check(len(losses) == run.steps and bool(np.isfinite(losses).all()),
-          f"phase q4: {len(losses)} losses, finite {np.isfinite(losses).all()}")
+          f"phase {phase}: {len(losses)} losses, finite {np.isfinite(losses).all()}")
     cold = VersionedCheckpointManager(ckpt, device="cuda")
     check(sorted(cold.step_to_vid) == sorted(saved),
-          f"phase q4: steps {sorted(cold.step_to_vid)} in the store, {sorted(saved)} saved")
+          f"phase {phase}: steps {sorted(cold.step_to_vid)} in the store, {sorted(saved)} saved")
     template = state_template(cfg)
+    f32 = {"params/" + k for k, v in tree_paths(out2["final_state"]["params"])
+           if v.dtype == torch.float32}
+    check(bool(f32), f"phase {phase}: the run keeps no param in f32")
     keys = set()
     for step in sorted(saved):
         got = cold.restore(template, step=step)
         digests = {k: leaf_sha(v) for k, v in tree_paths(got)}
         keys |= set(digests)
-        check(digests == saved[step], f"phase q4: step {step}: "
+        check(digests == saved[step], f"phase {phase}: step {step}: "
               f"{sum(digests.get(k) != v for k, v in saved[step].items())} leaves differ")
-        router = [v for k, v in tree_paths(got) if k.endswith("moe/router")]
-        check(bool(router) and all(v.dtype == torch.float32 for v in router),
-              f"phase q4: step {step}: the restored routers are not f32")
+        wrong = [k for k, v in tree_paths(got) if k in f32 and v.dtype != torch.float32]
+        check(not wrong, f"phase {phase}: step {step}: restored not as f32: {wrong[:4]}")
     cold.close()
-    check(any(k.startswith("params/mtp/") for k in keys), "phase q4: no MTP leaf was restored")
-    counts = counters.read("phase q4 (reduced driver)", ("changed_block_mask",))
-    log(f"phase q4: {cfg.name}, {run.steps} steps (preempted at {Q_DRIVER_PREEMPT_AT - 1}, "
-        f"resumed) in {train_s:.3f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; saves at steps "
-        f"{sorted(saved)}, each restored cold leaf for leaf ({len(keys)} leaves, the f32 routers "
-        f"and the MTP head's among them); changed_block_mask {counts['changed_block_mask']} "
-        f"launches, chain_delta_apply {counts['chain_delta_apply']} (every save is stored whole, "
-        f"as in phase l)")
+    check(any(k.startswith("params/mtp/") for k in keys) == cfg.mtp,
+          f"phase {phase}: MTP leaves restored: {not cfg.mtp}, the config's MTP head: {cfg.mtp}")
+    counts = counters.read(f"phase {phase} (reduced driver)", ("changed_block_mask",))
+    f32_names = sorted({k.rsplit("/", 1)[-1] for k in f32})
+    log(f"phase {phase}: {cfg.name}, {run.steps} steps (preempted at {preempt - 1}, resumed) in "
+        f"{train_s:.3f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; saves at steps "
+        f"{sorted(saved)}, each restored cold leaf for leaf ({len(keys)} leaves, the f32 "
+        f"{', '.join(f32_names)}{' and the MTP head' if cfg.mtp else ''} among them); "
+        f"changed_block_mask {counts['changed_block_mask']} launches, chain_delta_apply "
+        f"{counts['chain_delta_apply']} (every save is stored whole, as in phase l)")
     return {"train_s": train_s, "launches": counts}
 
 
@@ -4152,6 +4203,396 @@ def drive_moe_training(root: Path, counters: Counters) -> dict:
     out["q2"] = train_cut_model(counters, "q2", DS_ARCH, *Q_DS)
     out["q3"] = deepseek_moe_layer(counters)
     out["q4"] = drive_reduced_driver(root, counters)
+    return out
+
+
+# ------------------------------------------- (r) recurrent and enc-dec training
+R_STEPS = 5
+R_RG = (12, 2, 4096)     # RecurrentGemma-9B: layers (of 38: 4 (rglru, rglru, attn) units), batch, sequence
+R_RWKV = (4, 2048)       # RWKV-6 3B at full depth, the chunked WKV: batch, sequence
+R_RWKV_SCAN = (1, 512)   # then the config's default scan form: one step of batch x sequence
+R_ED = (8, 1024, 1024)   # SeamlessM4T-medium at full depth: batch, frames, tokens
+# (r1) The RG-LRU scan's gradients (a, bx, h0) on the first layer's real
+# input against autograd through the recurrence run sequentially in f64,
+# ||d|| / ||ref|| per input.  On an NVIDIA H100 80GB HBM3 (700 W) the sound
+# readings are at most 4.900e-08 (a) and the planted fault (the h0 fold
+# dropped) reads 0.5236 on a and 1.0 on h0: the limit sits 200x over the
+# one and 50,000x under the other.
+R_SCAN_GRAD_TOL = 1e-5
+# (r2) The chunked WKV's gradients (r, k, v, w, u) on layer 0's real input
+# against the scan form's, ||d|| / ||scan|| (the forward's WKV_TOL); the
+# planted fault (the bonus dropped, :func:`no_bonus`) reads 1.0 on u.
+R_WKV_GRAD_TOL = WKV_TOL
+# (r2) Each leaf's gradient of the whole model in the chunked form against
+# the scan form's, on the same weights and a 1 x 512 batch, ||d|| /
+# ||scan||.  Through 32 bf16 layers at random init the gradients are far
+# more sensitive than the forward (the forms' logits part by 0.03 in phase
+# (o)): a relative f32 perturbation of 1e-4 of one layer's WKV output moves
+# a leaf's gradient by up to 0.21 at two full-width layers (on the CPU).  On an
+# NVIDIA H100 80GB HBM3 (700 W) the sound readings reach 0.4437 (decay_w2;
+# median 0.190) and the planted fault 1.0 (u; median 0.346): the limit is
+# their geometric mean, and the layer-level check above is the sharp one.
+R_FORMS_GRAD_TOL = 0.67
+R_DRIVER_ARCHS = (RG_ARCH, RWKV_ARCH)
+
+
+def train_published(counters: Counters, phase: str, cfg, params, next_batch, batch: int,
+                    seq: int, enc_seq: int = 0, nonzero=lambda name: False) -> dict:
+    """``make_train_step`` on ``cfg`` (published widths) from ``params``:
+    ``R_STEPS`` steps of ``next_batch()`` (the WSD schedule, as phases (k)
+    and (q)), each step's wall on CUDA events, no flash launch; the bound
+    (3 forwards, :func:`forward_flops`) and the peak device memory; then a
+    traced step and one backward on a fresh batch, every leaf's gradient
+    present and finite and non-zero where ``nonzero(path)``.  Returns the
+    numbers, the state, the step and the loss function."""
+    import torch
+
+    from repro_torch.launch.train import RunConfig, train_config
+    from repro_torch.models import get_model
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import make_loss_fn, make_train_step
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    bundle = get_model(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state = {"params": params, "opt": init_opt_state(params), "error_fb": None}
+    tcfg = train_config(RunConfig(arch=cfg.name, steps=R_STEPS, schedule="wsd"))
+    step_fn = make_train_step(bundle, tcfg)
+    counters.zero()
+    marks, metrics = [cuda_event()], []
+    for _ in range(R_STEPS):
+        state, m = step_fn(state, next_batch())
+        marks.append(cuda_event())
+        metrics.append(m)
+    torch.cuda.synchronize()
+    counts = counters.read(f"phase {phase} (training)", ())
+    check(counts["flash_attention"] == 0,
+          f"phase {phase}: training launched flash_attention {counts['flash_attention']} times")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+    for i, (m, s) in enumerate(zip(metrics, step_s)):
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        check(np.isfinite(loss) and np.isfinite(gn), f"phase {phase}: step {i}: loss {loss}, "
+              f"grad norm {gn}")
+        log(f"phase {phase}: step {i}: loss {loss:.6f}, grad norm {gn:.6f}, lr "
+            f"{m['lr'].item():.6e}, step wall {s:.6f} s"
+            + (" (the first: allocations, cuBLAS plans)" if i == 0 else ""))
+    steady = step_s[1:]
+    mean = sum(steady) / len(steady)
+    fwd = forward_flops(cfg, batch, seq, enc_seq=enc_seq)
+    bound_s = 3 * fwd / TENSOR_FLOPS_PER_S
+    shape = f"{batch} x ({enc_seq} frames, {seq} tokens)" if enc_seq else f"{batch} x {seq}"
+    log(f"phase {phase}: {cfg.name}: {n_params} parameters, train state "
+        f"{n_params * STATE_BYTES / 1e9:.1f} GB ({STATE_BYTES} bytes a parameter); batch {shape}; "
+        f"steps 1-{R_STEPS - 1}: mean {mean:.6f} s, min {min(steady):.6f}, max "
+        f"{max(steady):.6f} ({batch * seq / mean:.1f} tokens/s); bound {bound_s:.6f} s "
+        f"({3 * fwd / 1e12:.3f} TFLOP over {TENSOR_FLOPS_PER_S / 1e12:.0f} TFLOP/s; bound / "
+        f"step {bound_s / mean:.4f}); the remat's recompute, outside the bound, "
+        f"{fwd / 1e12:.3f} TFLOP; peak device memory {peak:.3f} GiB")
+    state = traced_step(counters, phase, step_fn, state, next_batch())
+
+    fresh = next_batch()
+    params = state["params"]
+    names = [k for k, _ in tree_paths(params)]
+    loss_fn = make_loss_fn(bundle, tcfg)
+    grads = torch.autograd.grad(loss_fn(params, fresh), tree_leaves(params), allow_unused=True)
+    counts = counters.read(f"phase {phase} (checks)", ())
+    check(counts["flash_attention"] == 0, f"phase {phase}: the checks' backward launched flash")
+    bad = [n for n, g in zip(names, grads) if g is None or not bool(torch.isfinite(g).all())]
+    check(not bad, f"phase {phase}: leaves without a finite gradient: {bad[:8]}")
+    zero = [n for n, g in zip(names, grads) if nonzero(n) and not bool((g != 0).any())]
+    check(not zero, f"phase {phase}: all-zero gradients: {zero}")
+    log(f"phase {phase}: backward on a fresh batch: all {len(names)} leaves' gradients finite, "
+        f"{sum(map(nonzero, names))} checked non-zero; gradient norms "
+        + ", ".join(f"{n} {float(g.float().norm()):.6e}" for n, g in zip(names, grads)
+                    if nonzero(n)))
+    del grads
+    return {"step_s": mean, "tokens_s": batch * seq / mean, "bound_s": bound_s, "peak_gib": peak,
+            "n_params": n_params, "state": state, "tcfg": tcfg}
+
+
+def leaf_ratio(got, want) -> float:
+    """``||got - want|| / ||want||``, summed in f64 over f32 slices of
+    ``1 << 26`` elements: a stacked leaf of billions of elements never
+    holds a widened copy of itself."""
+    import torch
+
+    d2 = w2 = 0.0
+    for g, w in zip(torch.split(got.reshape(-1), 1 << 26), torch.split(want.reshape(-1), 1 << 26)):
+        g, w = g.float(), w.float()
+        d2 += float(torch.square(g - w).sum(dtype=torch.float64))
+        w2 += float(torch.square(w).sum(dtype=torch.float64))
+    return (d2 / w2) ** 0.5
+
+
+def _scan_h0_dropped(_):
+    """A planted fault: the RG-LRU scan without h0 folded into its first step."""
+    from repro_torch.models import recurrent
+
+    def scan(a, bx, h0):
+        _, hh = recurrent._assoc_scan(a, bx)
+        return hh, hh[:, -1]
+
+    return scan
+
+
+def rglru_grad_check(a, bx) -> dict:
+    """(r1): the RG-LRU scan's backward on the first layer's real input
+    (a, bx), from an N(0, 1) h0 so that the fold is exercised, against
+    autograd through the recurrence run sequentially in f64, the one phase
+    (o) holds the forward against; then with the h0 fold dropped (a planted
+    fault), which must land above ``R_SCAN_GRAD_TOL``."""
+    import torch
+
+    from repro_torch.models import recurrent
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    h0 = torch.randn((a.shape[0], a.shape[2]), generator=gen, device="cuda")
+    cot_h = torch.randn(a.shape, generator=gen, device="cuda")
+    cot_last = torch.randn(h0.shape, generator=gen, device="cuda")
+
+    def sequential(a_, bx_, h0_):
+        h, hs = h0_, []
+        for t in range(a_.shape[1]):
+            h = a_[:, t] * h + bx_[:, t]
+            hs.append(h)
+        return torch.stack(hs, dim=1), h
+
+    def grads(scan, dtype):
+        ins = [t.detach().to(dtype).requires_grad_(True) for t in (a, bx, h0)]
+        hh, last = scan(*ins)
+        out = (hh * cot_h.to(dtype)).sum() + (last * cot_last.to(dtype)).sum()
+        g = torch.autograd.grad(out, ins, allow_unused=True, materialize_grads=True)
+        return dict(zip(("a", "bx", "h0"), g))
+
+    t0 = time.perf_counter()
+    got = grads(recurrent._rglru_scan, torch.float32)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    want = grads(sequential, torch.float64)
+    ratios = {k: norm_ratio(got[k], want[k]) for k in want}
+    with Swap("_rglru_scan", _scan_h0_dropped):
+        faulty = grads(recurrent._rglru_scan, torch.float32)
+    fault = {k: norm_ratio(faulty[k], want[k]) for k in want}
+    log(f"phase r1: the RG-LRU scan's backward on layer 0's input {tuple(a.shape)} (h0 N(0, 1)) "
+        f"against autograd through a sequential f64 recurrence: ||d|| / ||ref|| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ratios.items()) + f" (limit {R_SCAN_GRAD_TOL}); "
+        "with the h0 fold dropped (planted fault): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in fault.items())
+        + f"; the scan's forward and backward {scan_s:.6f} s (one call)")
+    check(max(ratios.values()) <= R_SCAN_GRAD_TOL, f"phase r1: the scan's gradients are "
+          f"{ratios} of the f64 recurrence's norm from it (limit {R_SCAN_GRAD_TOL})")
+    check(max(fault.values()) > R_SCAN_GRAD_TOL, f"phase r1: the planted fault lands under the "
+          f"limit {R_SCAN_GRAD_TOL}: {fault}")
+    return {"ratios": ratios, "fault": fault}
+
+
+def wkv_grad_check(r, k, v, w, u, s0) -> dict:
+    """(r2): the chunked WKV's backward on layer 0's real input (its first
+    row and 1,024 tokens) against the scan form's, with seeded N(0, 1)
+    cotangents on the output and the last state; then with the bonus
+    dropped (a planted fault), which must land above ``R_WKV_GRAD_TOL``."""
+    import torch
+
+    from repro_torch.models import recurrent
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cot_o = torch.randn(r.shape, generator=gen, device="cuda")
+    cot_s = torch.randn(s0.shape, generator=gen, device="cuda")
+    names = ("r", "k", "v", "w", "u")
+
+    def grads(form):
+        ins = [t.detach().clone().requires_grad_(True) for t in (r, k, v, w, u)]
+        o, s = getattr(recurrent, form)(*ins, s0)
+        g = torch.autograd.grad((o * cot_o).sum() + (s * cot_s).sum(), ins, allow_unused=True,
+                                materialize_grads=True)
+        return dict(zip(names, g))
+
+    want = grads("_wkv_scan")
+    ratios = {k_: norm_ratio(g, want[k_]) for k_, g in grads("_wkv_chunked").items()}
+    with no_bonus():
+        fault = {k_: norm_ratio(g, want[k_]) for k_, g in grads("_wkv_chunked").items()}
+    log(f"phase r2: the chunked WKV's backward on layer 0's input {tuple(r.shape)} against the "
+        "scan's: ||d|| / ||scan|| " + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in ratios.items())
+        + f" (limit {R_WKV_GRAD_TOL}); with the bonus dropped (planted fault): "
+        + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in fault.items()))
+    check(max(ratios.values()) <= R_WKV_GRAD_TOL, f"phase r2: the WKV forms' backward differ by "
+          f"{ratios} (limit {R_WKV_GRAD_TOL})")
+    check(max(fault.values()) > R_WKV_GRAD_TOL, f"phase r2: the planted fault lands under the "
+          f"limit {R_WKV_GRAD_TOL}: {fault}")
+    return {"ratios": ratios, "fault": fault}
+
+
+def train_recurrentgemma(counters: Counters) -> dict:
+    """(r1): RecurrentGemma-9B at its published widths, cut to ``R_RG``'s
+    layers: the training run of :func:`train_published` (the RG-LRU and
+    attention leaves' gradients non-zero), then the first RG-LRU layer's
+    backward against an f64 recurrence (:func:`rglru_grad_check`)."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import recurrent
+    from repro_torch.models import transformer as tf
+
+    n_layers, batch, seq = R_RG
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = recurrent_model(RG_ARCH, n_layers, "r1")
+    pipe = SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=SEED,
+                                  device="cuda")
+    watched = {"w_rec_in", "w_gate_in", "w_out", "conv_w", "a_gate", "a_gate_bias", "i_gate",
+               "i_gate_bias", "lambda", "wq", "wk", "wv", "wo"}
+    out = train_published(counters, "r1", cfg, params, pipe.next_batch, batch, seq,
+                          nonzero=lambda n: n.rsplit("/", 1)[-1] in watched)
+    with torch.no_grad(), Capture(recurrent, "_rglru_scan") as scan:
+        tf.forward_hidden(cfg, out["state"]["params"], pipe.next_batch()["tokens"])
+    a, bx, _ = scan.args
+    del scan, out["state"], out["tcfg"]
+    out["scan"] = rglru_grad_check(a, bx)
+    del a, bx
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_rwkv(counters: Counters) -> dict:
+    """(r2): RWKV-6 3B at its published widths and depth: the training run
+    of :func:`train_published` in the chunked WKV (every WKV leaf's gradient
+    non-zero), the chunked WKV's backward on layer 0's input against the
+    scan's (:func:`wkv_grad_check`); then the config's default scan form,
+    one timed step of ``R_RWKV_SCAN``, whose gradients (handed to the
+    optimizer) are held against the chunked form's on the same weights and
+    batch, within ``R_FORMS_GRAD_TOL``, beside the chunked form with its
+    bonus dropped."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import get_model, recurrent
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    batch, seq = R_RWKV
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = recurrent_model(RWKV_ARCH, 0, "r2")
+    scan_cfg = cfg                                  # the config's default form
+    cfg = dataclasses.replace(cfg, rwkv_impl="chunked")
+    pipe = SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=SEED,
+                                  device="cuda")
+    watched = {"mu_x", "mu_rkvwg", "shift_w1", "shift_w2", "w_r", "w_k", "w_v", "w_g", "w_o",
+               "w0", "decay_w1", "decay_w2", "u", "ln_x_scale", "ln_x_bias"}
+    out = train_published(counters, "r2", cfg, params, pipe.next_batch, batch, seq,
+                          nonzero=lambda n: n.rsplit("/", 1)[-1] in watched)
+    with torch.no_grad(), Capture(recurrent, "_wkv_chunked") as wkv:
+        tf.forward_hidden(cfg, out["state"]["params"], pipe.next_batch()["tokens"])
+    r, k, v, w, u, s0 = wkv.args
+    del wkv
+    out["wkv"] = wkv_grad_check(*(t[:1, :1024] for t in (r, k, v, w)), u, s0[:1])
+    del r, k, v, w, u, s0
+
+    b1, s1 = R_RWKV_SCAN
+    small = SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=s1, global_batch=b1,
+                                   seed=SEED + 1, device="cuda").next_batch()
+    state = out.pop("state")
+    params = state["params"]
+    names = [k for k, _ in tree_paths(params)]
+    leaves = tree_leaves(params)
+
+    def grads_of(c):
+        loss_fn = train_loop.make_loss_fn(get_model(c), train_loop.TrainConfig())
+        return torch.autograd.grad(loss_fn(params, small), leaves, allow_unused=True,
+                                   materialize_grads=True)   # u, where the fault drops it
+
+    chunked = grads_of(cfg)                          # at the weights the scan step starts from
+    with no_bonus():
+        faulty = grads_of(cfg)
+    scan_step = train_loop.make_train_step(get_model(scan_cfg), out.pop("tcfg"))
+    counters.zero()
+    with Capture(train_loop, "adamw_update") as update:
+        start = cuda_event()
+        state, m = scan_step(state, small)
+        end = cuda_event()
+        end.synchronize()
+    counters.read("phase r2 (the scan form's step)", ())
+    scan_s = start.elapsed_time(end) / 1e3
+    scan = tree_leaves(update.args[2])
+    del update
+    ratios = {n: leaf_ratio(c, s_) for n, c, s_ in zip(names, chunked, scan)}
+    fault = {n: leaf_ratio(f, s_) for n, f, s_ in zip(names, faulty, scan)}
+    del chunked, faulty, scan
+    worst = max(ratios, key=ratios.get)
+    worst_fault = max(fault, key=fault.get)
+    fwd = forward_flops(scan_cfg, b1, s1)
+    out["forms"] = {"max": ratios[worst], "fault_max": fault[worst_fault], "scan_step_s": scan_s}
+    log(f"phase r2: the config's default scan form, one step of {b1} x {s1}: loss "
+        f"{m['loss'].item():.6f}, step wall {scan_s:.6f} s (CUDA events, one step, the form's "
+        f"first; bound {3 * fwd / TENSOR_FLOPS_PER_S:.6f} s); its gradients against the chunked "
+        f"form's on the same weights and batch, ||chunked - scan|| / ||scan|| a leaf: max "
+        f"{ratios[worst]:.6e} ({worst}), median {float(np.median(list(ratios.values()))):.6e} "
+        f"(limit {R_FORMS_GRAD_TOL}); the chunked form with its bonus dropped (planted fault): "
+        f"max {fault[worst_fault]:.6e} ({worst_fault}), median "
+        f"{float(np.median(list(fault.values()))):.6e}")
+    check(np.isfinite(m["loss"].item()), "phase r2: the scan form's loss is not finite")
+    check(ratios[worst] <= R_FORMS_GRAD_TOL, f"phase r2: the WKV forms' gradients differ by "
+          f"{ratios[worst]} at {worst} (limit {R_FORMS_GRAD_TOL})")
+    check(fault[worst_fault] > R_FORMS_GRAD_TOL, f"phase r2: the planted fault lands under the "
+          f"limit {R_FORMS_GRAD_TOL}: {fault[worst_fault]}")
+    del state, params, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_encdec(counters: Counters) -> dict:
+    """(r3): SeamlessM4T-medium at its published widths and depth: the
+    training run of :func:`train_published` on batches of N(0, 1) bf16
+    frames (as phase (p) draws them) and synthetic tokens, every encoder and
+    cross-attention leaf's gradient non-zero, flash never launched."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import count_params, get_model
+
+    batch, enc_seq, seq = R_ED
+    cfg = ARCHS[ED_ARCH]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    n_norms = sum(t.numel() for name, t in _leaves(params) if "norm" in name)
+    pad = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * 2   # embed and lm_head
+    log(f"phase r3: {cfg.name} at its published widths and depth ({cfg.enc_layers} encoder and "
+        f"{cfg.n_layers} decoder layers, d {cfg.d_model}, vocab {cfg.vocab}): {n_params} "
+        f"parameters, drawn on the card in {time.perf_counter() - t0:.3f} s")
+    check(n_params - n_norms == count_params(cfg) + pad,
+          f"phase r3: {n_params - n_norms} parameters against count_params {count_params(cfg)} "
+          f"+ {pad} padding")
+    pipe = SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=SEED,
+                                  device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def next_batch():   # the stub frontend's frames, N(0, 1) bf16
+        return {"frames": torch.randn((batch, enc_seq, cfg.d_model), generator=gen,
+                                      device="cuda").to(torch.bfloat16), **pipe.next_batch()}
+
+    out = train_published(counters, "r3", cfg, params, next_batch, batch, seq, enc_seq=enc_seq,
+                          nonzero=lambda n: n.startswith(("enc/", "dec/cross/")))
+    del out["state"], out["tcfg"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_recurrent_training(root: Path, counters: Counters) -> dict:
+    """Phase (r): (r1) RecurrentGemma-9B and (r2) RWKV-6 3B trained at their
+    published widths (RecurrentGemma's depth cut), (r3) SeamlessM4T-medium
+    at its widths and depth, each alone on the card; (r4) the reduced driver
+    on both recurrent archs with saves, a preemption and a resume."""
+    out = {"r1": train_recurrentgemma(counters)}
+    out["r2"] = train_rwkv(counters)
+    out["r3"] = train_encdec(counters)
+    out["r4"] = {arch: drive_reduced_driver(root, counters, "r4", dict(Q_DRIVER_RUN, arch=arch))
+                 for arch in R_DRIVER_ARCHS}
     return out
 
 
@@ -4221,6 +4662,8 @@ def main(argv=None) -> int:
         phase("k", drive_training, Path(tmp), counters)
     with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
         phase("q", drive_moe_training, Path(tmp), counters)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
+        phase("r", drive_recurrent_training, Path(tmp), counters)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"total wall {time.perf_counter() - start:.3f} s")
 

@@ -15,11 +15,16 @@ The loop:
 * repack: every ``repack_every`` saves, re-optimize the storage graph with
   the paper's solver (Problem 6 with the restore-latency SLA θ), on the card.
 
-It trains the dense decoder configs and the MoE and MLA families
-(DeepSeek-V3 with its MTP loss, Phi-3.5-MoE); the recurrent and enc-dec
-families raise before anything is drawn, naming ROADMAP Queue 1 item 3c.
-It runs on the card; ``device="cpu"`` (``--device cpu``) runs the plain
-PyTorch versions, at the reduced configs the JAX package's examples use.
+It trains the dense decoder configs, the MoE and MLA families (DeepSeek-V3
+with its MTP loss, Phi-3.5-MoE) and the recurrent families
+(RecurrentGemma-9B, RWKV-6 3B: the RG-LRU's and the WKV's f32 vectors are
+saved and restored as f32).  The enc-dec family raises before anything is
+drawn: the JAX package's driver feeds the step from its token pipeline,
+whose batches carry no frames, so it cannot train that family either; the
+family trains through ``training.make_train_step`` on batches that carry
+frames.  It runs on the card; ``device="cpu"`` (``--device cpu``) runs the
+plain PyTorch versions, at the reduced configs the JAX package's examples
+use.
 """
 
 from __future__ import annotations
@@ -85,8 +90,10 @@ def train_config(run: RunConfig) -> TrainConfig:
 def state_template(cfg) -> Dict[str, Any]:
     """The saved state's structure as ``(shape, dtype)`` leaves, from the
     config's shapes alone: nothing is allocated.  Each param keeps its own
-    dtype (bf16; the MoE routers f32) and the MTP head's subtree is there
-    when the config has one; the moments are f32."""
+    dtype (bf16; f32 for the MoE routers and the recurrent blocks' vectors:
+    the RG-LRU's gates and Λ, RWKV-6's ``mu_x``, ``mu_rkvwg``, ``w0``, ``u``,
+    ``ln_x_*`` and ``ffn_mu_*``) and the MTP head's subtree is there when
+    the config has one; the moments are f32."""
     scalar = ((), torch.int32)
     moments = tf.param_shapes(cfg, torch.float32)
     return {
@@ -109,13 +116,10 @@ def train(run: RunConfig, *, guard: Optional[PreemptionGuard] = None,
     cfg = run_model_config(run)
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: training the encoder-decoder family (its batches carry frames, "
-            "which the synthetic pipeline does not make) waits for ROADMAP Queue 1 item "
-            "3c; it serves")
-    if {"rglru", "rwkv"} & set(cfg.blocks()):
-        raise NotImplementedError(
-            f"{cfg.name}: training the recurrent families (the backward of the associative "
-            "and WKV scans) waits for ROADMAP Queue 1 item 3c; they serve")
+            f"{cfg.name}: the driver draws its batches from SyntheticTokenPipeline, a "
+            "token-only pipeline (as the JAX package's driver does), and an encoder-decoder "
+            "batch carries frames; train it through training.make_train_step on a batch "
+            "with frames")
     bundle = get_model(cfg)
     step_fn = make_train_step(bundle, train_config(run))
 

@@ -6,8 +6,18 @@ are precomputed audio-frame embeddings and go straight into the encoder.
 The encoder is a non-causal GQA stack; the decoder a causal stack whose
 layers also attend over the encoder's output (cross-attention).  Where the
 JAX package scans the stacked layers, the port loops over the stack index
-in Python; serving runs under ``no_grad`` and no layer is rematerialised
-(training the family waits for ROADMAP Queue 1 item 3c).
+in Python.  Under autograd (training) each encoder layer and each decoder
+layer of ``mode="train"`` runs inside ``torch.utils.checkpoint``, as the
+JAX package's scans run ``jax.checkpoint``-ed bodies: only each layer's
+input is kept and the layer is recomputed in the backward pass.  A decoder
+layer computes its cross-attention K/V from ``enc_out`` inside the
+checkpoint, so the encoder's output gets the sum of the 12 layers'
+gradients and no layer keeps its K/V.  Attention under autograd takes the
+chunked softmax (``attention._full_attention``), the flash kernel never;
+serving runs under ``no_grad`` and no layer is rematerialised.  The family
+trains through ``training.make_train_step`` on batches that carry frames;
+``launch.train`` refuses it, as the JAX package's driver, whose pipeline
+makes tokens only, cannot train it either.
 
 The cache is the JAX package's ``{"self": {"k", "v"}, "enc_out"}``: the
 decoder's self-attention cache, stacked over the layers, and the encoder's
@@ -27,6 +37,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import resolve_device
@@ -85,19 +96,30 @@ def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return (mlp_swiglu if cfg.mlp_kind == "swiglu" else mlp_gelu)(x, p)
 
 
+def _enc_layer(cfg: ModelConfig, attn_p: Params, mlp_p: Params, n1: torch.Tensor,
+               n2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, n1, cfg.norm_eps)
+    x = x + attn_lib.gqa_forward(cfg, attn_p, h, causal=False)
+    h = rms_norm(x, n2, cfg.norm_eps)
+    return x + _mlp(cfg, mlp_p, h)
+
+
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_enc, D), the stub frontend's output, cast to bf16.  The
     self-attention is non-causal dense attention: the flash kernel where
-    ``_full_attention`` takes it (S_enc a multiple of 128)."""
+    ``_full_attention`` takes it (S_enc a multiple of 128, no autograd).
+    Under autograd each layer is rematerialised."""
     enc = params["enc"]
     x = frames.to(BF16)
     L = cfg.enc_layers
+    remat = torch.is_grad_enabled()
     for attn_p, mlp_p, n1, n2 in zip(_unstack(enc["attn"], L), _unstack(enc["mlp"], L),
                                      enc["norm1"], enc["norm2"]):
-        h = rms_norm(x, n1, cfg.norm_eps)
-        x = x + attn_lib.gqa_forward(cfg, attn_p, h, causal=False)
-        h = rms_norm(x, n2, cfg.norm_eps)
-        x = x + _mlp(cfg, mlp_p, h)
+        if remat:
+            x = checkpoint(_enc_layer, cfg, attn_p, mlp_p, n1, n2, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _enc_layer(cfg, attn_p, mlp_p, n1, n2, x)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -111,28 +133,42 @@ def _cross_kv(cfg: ModelConfig, cross_p: Params, enc_out: torch.Tensor):
     return k, v
 
 
+def _dec_layer(cfg: ModelConfig, self_p: Params, cross_p: Params, mlp_p: Params,
+               n1: torch.Tensor, n2: torch.Tensor, n3: torch.Tensor, x: torch.Tensor,
+               enc_out: torch.Tensor, mode: str = "train", cache=None,
+               pos: int = 0) -> torch.Tensor:
+    h = rms_norm(x, n1, cfg.norm_eps)
+    if mode == "train":
+        a = attn_lib.gqa_forward(cfg, self_p, h)
+    elif mode == "prefill":
+        a, _ = attn_lib.gqa_prefill(cfg, self_p, h, cache)
+    else:
+        a, _ = attn_lib.gqa_decode(cfg, self_p, h, cache, pos)
+    x = x + a
+    h = rms_norm(x, n2, cfg.norm_eps)
+    x = x + attn_lib.gqa_forward(cfg, cross_p, h, cross_kv=_cross_kv(cfg, cross_p, enc_out))
+    h = rms_norm(x, n3, cfg.norm_eps)
+    return x + _mlp(cfg, mlp_p, h)
+
+
 def _decoder(cfg: ModelConfig, params: Params, x: torch.Tensor, enc_out: torch.Tensor, *,
              mode: str, caches=None, pos: int = 0) -> torch.Tensor:
     """The decoder stack over ``x`` (B, S, D); ``mode`` train | prefill |
     decode.  Prefill and decode write the self cache ``caches`` (stacked
-    over the layers) in place."""
+    over the layers) in place; training under autograd rematerialises each
+    layer, its cross K/V included."""
     dec, L = params["dec"], cfg.n_layers
     layer_caches = _unstack(caches, L) if caches is not None else [None] * L
+    remat = mode == "train" and torch.is_grad_enabled()
     for self_p, cross_p, mlp_p, n1, n2, n3, cache in zip(
             _unstack(dec["self"], L), _unstack(dec["cross"], L), _unstack(dec["mlp"], L),
             dec["norm1"], dec["norm2"], dec["norm3"], layer_caches):
-        h = rms_norm(x, n1, cfg.norm_eps)
-        if mode == "train":
-            a = attn_lib.gqa_forward(cfg, self_p, h)
-        elif mode == "prefill":
-            a, _ = attn_lib.gqa_prefill(cfg, self_p, h, cache)
+        if remat:
+            x = checkpoint(_dec_layer, cfg, self_p, cross_p, mlp_p, n1, n2, n3, x, enc_out,
+                           use_reentrant=False, preserve_rng_state=False)
         else:
-            a, _ = attn_lib.gqa_decode(cfg, self_p, h, cache, pos)
-        x = x + a
-        h = rms_norm(x, n2, cfg.norm_eps)
-        x = x + attn_lib.gqa_forward(cfg, cross_p, h, cross_kv=_cross_kv(cfg, cross_p, enc_out))
-        h = rms_norm(x, n3, cfg.norm_eps)
-        x = x + _mlp(cfg, mlp_p, h)
+            x = _dec_layer(cfg, self_p, cross_p, mlp_p, n1, n2, n3, x, enc_out, mode, cache,
+                           pos)
     return x
 
 

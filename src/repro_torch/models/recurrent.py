@@ -23,7 +23,21 @@ step.
 
 Unlike the JAX package, which returns new states, ``rglru_block`` and
 ``rwkv_block`` write their state into the caller's (the engine's buffer) in
-place and return it; with no state (teacher forcing) they start from zeros.
+place and return it.  With no state (teacher forcing, training) they start
+from zeros and write nothing: a write into a zero state that autograd has
+saved (the WKV's s0 is an operand of its first product) would fail the
+backward pass's version check, and a buffer holding the last state would
+keep the graph alive for as long as it lives.
+
+Training differentiates both blocks as they stand: the associative scan's
+odd/even recursion, ``_fma``'s f64 multiply-add, the WKV's Python loop over
+tokens (whose backward keeps a (B, H, hd, hd) f32 state a step) and its
+chunked form.  Where the JAX package bounds a value with ``jnp.maximum`` or
+``jnp.clip`` (the RG-LRU's √(1 − a²) floor, the chunked WKV's log-decay
+range), the port takes ``torch.maximum`` / ``torch.minimum``, which like
+JAX hand each side half of the gradient at a tie; ``torch.clamp`` would
+pass all of it (a decay of exactly 1.0, log-decay 0, would get twice
+JAX's gradient).
 """
 
 from __future__ import annotations
@@ -92,7 +106,7 @@ def rglru_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     i = torch.sigmoid(xf * p["i_gate"].float() + p["i_gate_bias"].float())
     log_a = -_C * F.softplus(p["lambda"].float()) * r
     a = torch.exp(log_a)
-    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    gated = torch.sqrt(torch.maximum(1.0 - a * a, a.new_tensor(1e-12))) * (i * xf)
     h, h_last = _rglru_scan(a, gated, h0.float())
     return h.to(x.dtype), h_last
 
@@ -109,16 +123,20 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                state: Optional[Dict]) -> Tuple[torch.Tensor, Dict]:
+                state: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The Griffin recurrent block.  state: {"h": (B, W) f32, "conv": (B,
-    K-1, W) bf16}, updated in place."""
-    if state is None:
+    K-1, W) bf16}, updated in place; None starts from zeros and keeps
+    nothing (returned as None)."""
+    keep = state is not None
+    if not keep:
         state = rglru_init_state(cfg, x.shape[0], device=x.device)
     xr = x @ p["w_rec_in"]
     xg = x @ p["w_gate_in"]
     xr, conv_buf = _causal_conv(xr, p["conv_w"], state["conv"])
     y, h_last = rglru_apply(cfg, p, xr, state["h"])
     y = y * F.gelu(xg.float(), approximate="tanh").to(x.dtype)
+    if not keep:
+        return y @ p["w_out"], None
     state["h"].copy_(h_last)
     state["conv"].copy_(conv_buf)
     return y @ p["w_out"], state
@@ -140,15 +158,18 @@ _LOG_DECAY_FLOOR = -2.5  # exp(2.5·32) ≈ 5e34 stays inside f32; see _wkv_chun
 def _wkv_scan(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sequential WKV, one token at a time.  r, k, v, w: (B, S, H, hd)
     f32; u: (H, hd); s0: (B, H, hd, hd).  Returns (out (B, S, H, hd), the
-    last state)."""
+    last state).  The inputs are split into their tokens once (``unbind``),
+    so a token costs four operations: under autograd, where every one is a
+    node of the graph, the host's work is what bounds the loop."""
     s = s0
     u4 = u[None, :, :, None]
+    rs, ks, vs, ws = (x.unsqueeze(d).unbind(1) for x, d in ((r, -2), (k, -1), (v, -2), (w, -1)))
     outs = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]             # (B, H, hd, hd)
-        outs.append((r[:, t, :, None, :] @ torch.addcmul(s, u4, kv))[:, :, 0])
-        s = torch.addcmul(kv, w[:, t, :, :, None], s)                # w_t * s + kv
-    return torch.stack(outs, dim=1), s
+    for rt, kt, vt, wt in zip(rs, ks, vs, ws):
+        kv = kt * vt                                           # (B, H, hd, hd)
+        outs.append(rt @ torch.addcmul(s, u4, kv))             # (B, H, 1, hd)
+        s = torch.addcmul(kv, wt, s)                           # w_t * s + kv
+    return torch.stack(outs, dim=1)[:, :, :, 0], s
 
 
 def _wkv_chunked(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -161,35 +182,39 @@ def _wkv_chunked(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
            k̃_i = k_i·e^{-la_i}.
 
     The per-step log-decay is clamped to ``_LOG_DECAY_FLOOR`` so that
-    e^{-la} stays finite in f32.  Shapes as :func:`_wkv_scan`."""
+    e^{-la} stays finite in f32.  What does not depend on the state (la, r̃,
+    k̃, the intra-chunk scores, each chunk's k̃ᵀ v) is computed for all
+    chunks at once; only the state's recurrence steps chunk by chunk, two
+    operations a chunk, and the state entering each chunk meets r̃ in one
+    product.  Shapes as :func:`_wkv_scan`."""
     B, S, H, hd = r.shape
     L = WKV_CHUNK
     nC = S // L
-    log_w = torch.clamp(torch.log(torch.clamp(w, min=1e-38)), _LOG_DECAY_FLOOR, 0.0)
+    log_w = torch.minimum(torch.maximum(torch.log(torch.maximum(w, w.new_tensor(1e-38))),
+                                        w.new_tensor(_LOG_DECAY_FLOOR)), w.new_tensor(0.0))
 
     def to_chunks(x):
         return x.reshape(B, nC, L, H, hd)
 
     rc, kc, vc, lwc = map(to_chunks, (r, k, v, log_w))
     bonus = torch.einsum("bshk,bshk->bsh", r * u[None, None], k)[..., None] * v
-    bonusc = to_chunks(bonus)
     mask = (torch.arange(L, device=r.device)[:, None]
             > torch.arange(L, device=r.device)[None, :]).float()
+    la = torch.cumsum(lwc, dim=2)            # inclusive, within each chunk
+    la_prev = la - lwc                       # exclusive
+    r_t = rc * torch.exp(la_prev)
+    k_t = kc * torch.exp(-la)
+    scores = torch.einsum("bclhk,bcmhk->bchlm", r_t, k_t)
+    intra = torch.einsum("bchlm,bcmhv->bclhv", scores * mask, vc)
+    kv = torch.einsum("bclhk,bclhv->bchkv", k_t, vc)      # (B, nC, H, hd_k, hd_v)
+    decay = torch.exp(la[:, :, -1])[..., None]             # (B, nC, H, hd_k, 1)
     s = s0
-    outs = []
-    for c in range(nC):
-        rb, kb, vb, lwb = rc[:, c], kc[:, c], vc[:, c], lwc[:, c]     # (B, L, H, hd)
-        la = torch.cumsum(lwb, dim=1)        # inclusive
-        la_prev = la - lwb                   # exclusive
-        r_t = rb * torch.exp(la_prev)
-        k_t = kb * torch.exp(-la)
-        inter = torch.einsum("blhk,bhkv->blhv", r_t, s)
-        scores = torch.einsum("blhk,bmhk->bhlm", r_t, k_t)
-        intra = torch.einsum("bhlm,bmhv->blhv", scores * mask[None, None], vb)
-        outs.append(inter + intra + bonusc[:, c])
-        kv = torch.einsum("blhk,blhv->bhkv", k_t, vb)
-        s = (s + kv) * torch.exp(la[:, -1])[..., None]   # la[:, -1]: (B, H, hd_k)
-    return torch.stack(outs, dim=1).reshape(B, S, H, hd), s
+    entering = []
+    for kv_c, decay_c in zip(kv.unbind(1), decay.unbind(1)):
+        entering.append(s)
+        s = (s + kv_c) * decay_c
+    inter = torch.einsum("bclhk,bchkv->bclhv", r_t, torch.stack(entering, dim=1))
+    return (inter + intra).reshape(B, S, H, hd) + bonus, s
 
 
 def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
@@ -198,11 +223,15 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
 
 
 def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                  state: Dict) -> Tuple[torch.Tensor, Dict]:
+                  state: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The RWKV-6 attention analogue.  state: {"s": (B, H, hd, hd) f32,
-    "x_last": (B, D)}, updated in place."""
+    "x_last": (B, D)}, updated in place; None starts from zeros and keeps
+    nothing (returned as None)."""
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.rwkv_head_dim
+    keep = state is not None
+    if not keep:
+        state = rwkv_init_state(cfg, B, device=x.device)["time"]
     # the token-shift mixing runs in bf16, the WKV core in f32
     prev = _token_shift(x, state["x_last"].to(x.dtype))
     dx = prev - x
@@ -234,35 +263,40 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     out = group_norm_heads(out, p["ln_x_scale"].float().reshape(H, hd),
                            p["ln_x_bias"].float().reshape(H, hd))
     out = out.reshape(B, S, D).to(x.dtype) * F.silu(g.float()).to(x.dtype)
+    if not keep:
+        return (out @ p["w_o"]).to(x.dtype), None
     state["s"].copy_(s_final)
     state["x_last"].copy_(x[:, -1])
     return (out @ p["w_o"]).to(x.dtype), state
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                     state: Dict) -> Tuple[torch.Tensor, Dict]:
+                     state: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The RWKV FFN (channel mix), its token shift in f32.  state:
-    {"x_last": (B, D)}, updated in place."""
+    {"x_last": (B, D)}, updated in place; None starts from zeros and keeps
+    nothing (returned as None)."""
     xf = x.float()
-    dx = _token_shift(xf, state["x_last"].float()) - xf
+    last = state["x_last"] if state is not None else xf.new_zeros((x.shape[0], x.shape[2]))
+    dx = _token_shift(xf, last.float()) - xf
     xk = (xf + dx * p["ffn_mu_k"].float()).to(x.dtype)
     xr = (xf + dx * p["ffn_mu_r"].float()).to(x.dtype)
     kk = torch.square(torch.relu((xk @ p["ffn_k"]).float())).to(x.dtype)
     vv = kk @ p["ffn_v"]
     rr = torch.sigmoid((xr @ p["ffn_r"]).float()).to(x.dtype)
-    state["x_last"].copy_(x[:, -1])
+    if state is not None:
+        state["x_last"].copy_(x[:, -1])
     return vv * rr, state
 
 
 def rwkv_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               state: Optional[Dict]) -> Tuple[torch.Tensor, Dict]:
+               state: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Time mix and channel mix, each behind its own RMS norm.  state:
-    {"time": ..., "chan": ...} (:func:`rwkv_init_state`), updated in place."""
-    if state is None:
-        state = rwkv_init_state(cfg, x.shape[0], device=x.device)
-    a, _ = rwkv_time_mix(cfg, p, rms_norm(x, p["norm1"], cfg.norm_eps), state["time"])
+    {"time": ..., "chan": ...} (:func:`rwkv_init_state`), updated in place;
+    None starts from zeros and keeps nothing (returned as None)."""
+    st_t, st_c = (None, None) if state is None else (state["time"], state["chan"])
+    a, _ = rwkv_time_mix(cfg, p, rms_norm(x, p["norm1"], cfg.norm_eps), st_t)
     x = x + a
-    b, _ = rwkv_channel_mix(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps), state["chan"])
+    b, _ = rwkv_channel_mix(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps), st_c)
     return x + b, state
 
 

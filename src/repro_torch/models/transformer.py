@@ -14,7 +14,13 @@ pass.  An MoE layer routes again in its recompute, on the same input, and so
 takes the same experts; the checkpoint compares shapes only, so the tests
 hold the gradients bit for bit against a run without remat, and the chip
 smoke run compares each recompute's routes with its forward's.  The
-``REPRO_REMAT_POLICY=dots`` knob has no counterpart yet (ROADMAP Queue 1).
+recurrent layers train under the same checkpoint: an ``rglru`` or ``rwkv``
+layer starts from a zero state and writes none (``models.recurrent``), so
+its recompute is a pure function of its input and parameters, and
+RecurrentGemma's windowed ``attn`` layers train through
+``gqa_forward(window=)``, the block-local softmax, as the JAX package's
+training does.  The ``REPRO_REMAT_POLICY=dots`` knob has no counterpart
+yet (ROADMAP Queue 1).
 
 Block kinds: ``attn`` (GQA, with ``cfg.attn_window`` a sliding window),
 ``mla`` (DeepSeek) and ``rglru`` (Griffin), each paired with an MLP or an

@@ -7,9 +7,12 @@ donated state).  Features:
 
 * causal-LM cross entropy in f32, over 512-token chunks whose logits are
   recomputed in the backward pass (:func:`chunked_cross_entropy`);
-* per-layer remat inside the model (``transformer._run_segments``);
+* per-layer remat inside the model (``transformer._run_segments``, and
+  both stacks of ``encdec``);
 * **microbatching**: gradients of ``grad_accum`` slices of the batch summed
-  in f32, so peak activation memory drops by the accumulation factor;
+  in f32, so peak activation memory drops by the accumulation factor; every
+  entry of the batch is sliced along its batch axis (an enc-dec batch's
+  ``frames`` with its ``tokens``);
 * optional **int8 gradient compression with error feedback**
   (:mod:`repro_torch.distributed.compression`).
 
@@ -21,7 +24,8 @@ load-balancing term.
 The step launches no hand-written kernel: attention under autograd takes the
 chunked softmax, as the JAX package's training does
 (``models.attention._full_attention``), MLA's included, and the MoE layers
-differentiate through their dispatch (``models.moe.moe_block``).
+differentiate through their dispatch (``models.moe.moe_block``), the
+recurrent blocks through their scans (``models.recurrent``).
 """
 
 from __future__ import annotations
@@ -124,7 +128,8 @@ def make_train_step(
     gets no gradient raises: every param of every config the port trains
     feeds the loss (the MTP head's through its term; an expert that no route
     reached through the stacked expert weights, as a zero), so a missing
-    gradient means a broken graph."""
+    gradient means a broken graph (an enc-dec encoder reaches the loss only
+    through the decoder's cross-attention K/V)."""
     loss_fn = make_loss_fn(bundle, tcfg)
 
     def grads_of(params, leaves, batch):
