@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent, encoder-decoder) and training (dense, MoE, MLA) paths on one NVIDIA GPU.
+"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent, encoder-decoder) and training (every family; the dots remat policy) paths, its kernel auditor and its CLIs on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -267,14 +267,49 @@ use (into ``build/``).  Phases:
     copy leaf for leaf (sha256; f32 routers, the MTP head), and
     ``changed_block_mask`` must launch.
 
+(r) Training the recurrent and enc-dec families at their published widths,
+    weights drawn on the card from a seeded generator, through
+    ``make_train_step`` (WSD, 5 steps, each step's wall, tokens/s, the
+    bound, the peak, a traced step, one backward with every leaf's gradient
+    finite): (r1) RecurrentGemma-9B cut to 12 of 38 layers, 2 x 4096, and
+    the RG-LRU scan's backward against an f64 recurrence beside a planted
+    fault (the h0 fold dropped); (r2) RWKV-6 3B at full depth, 4 x 2048 in
+    the chunked WKV, the chunked form's backward against the scan's on a
+    real layer input, then one 1 x 512 step in the scan form with the whole
+    model's gradients against the chunked form's, each beside a planted
+    fault (the bonus u dropped); (r3) SeamlessM4T-medium at full depth, 8 x
+    (1024 seeded frames, 1024 tokens), flash 0, every encoder and
+    cross-attention leaf's gradient non-zero; (r4) the reduced driver on
+    both recurrent archs with saves, a preemption and a resume, every save
+    restored by sha256.
+(s) (s1) Phase (k)'s run (minicpm-2b at full width and depth, 5 steps of 8
+    x 1024 through ``launch.train.train``) under ``REPRO_REMAT_POLICY=dots``,
+    which saves the layers' no-batch weight products (q, k, v, o, gate, up)
+    instead of recomputing them: each step's wall, tokens/s, the bound (as
+    (k)), the recompute the policy leaves out and the bytes of its saved
+    products, the peak device memory, one traced step's busy share and
+    kernel classes; then one backward on the same state and batch under
+    ``full`` and under ``dots``, whose gradients must be the same bits, with
+    each backward's peak.  (s2) The CLIs, each a subprocess whose exit status
+    is checked: ``python -m repro_torch.analysis audit --json`` on the card
+    (every target ran, no finding beyond the committed
+    ``analysis_baseline_torch.json``: 0), the same over a planted wrapper
+    alone that XORs into its argument through a launch (``audit.arg-write``
+    from the bytes: 1), ``fsck --synthetic`` (0), fsck of the synthetic
+    store committed on the card with one object deleted
+    (``fsck.missing-object``: 1), ``python -m repro_torch.obs summary
+    --synthetic --json`` and ``overhead`` (the disabled tracer's share of a
+    warm checkout, gated at ``S_OVERHEAD_BUDGET_PCT`` and printed beside the
+    card's name and power limit).
+
 Phases (e) and (h)'s kernel checks run right after (a), so that every
 kernel is checked before the main path starts.  The launch counters of the
 kernels are set to 0 before each main-path phase and read after it; a
 kernel its phase should use that launched no time fails the run, as does
 any mismatch.  Phases (b), (c), (f), (g), (i), (j), (l), (h)'s requests,
-(m), (n), (o), (p), (k) and (q) are the main path ((j) runs after (d), on
-(b)'s ground truth; (m), (n), (o), (p), (k) and (q) run last, each alone on
-the card's memory); the launches of the kernel checks, which compare kernels with their
+(m), (n), (o), (p), (k), (q), (r) and (s) are the main path ((j) runs after
+(d), on (b)'s ground truth; (m) to (s) run last, each alone on the card's
+memory); the launches of the kernel checks, which compare kernels with their
 plain versions, are not counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
 result line).  The last lines are the card's name and power limit
 (``nvidia-smi``), one JSON object with each kernel's numbers, and the
@@ -284,8 +319,10 @@ of that object also carry ``launch_floor_ms``.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -315,7 +352,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefghijklmnopqr"
+PHASES = "abcdefghijklmnopqrs"
 
 
 def log(msg: str) -> None:
@@ -4596,6 +4633,231 @@ def drive_recurrent_training(root: Path, counters: Counters) -> dict:
     return out
 
 
+# ------------------------------------- (s) the dots remat policy, the CLIs
+S_SAVED = ("wq", "wk", "wv", "wo", "w_gate", "w_up")  # the products dots saves a layer
+# the overhead gate's budget here: on the card's host the share read 1.909% of
+# a 17.57 us warm checkout against the CLI's default 2% (3 points x 112 ns), so
+# a host a tenth slower at a Python call would fail a run that found nothing
+# wrong; the share is printed either way
+S_OVERHEAD_BUDGET_PCT = 5.0
+
+
+@contextlib.contextmanager
+def remat_policy(policy: str):
+    """``REPRO_REMAT_POLICY`` set to ``policy`` for the block, then restored."""
+    old = os.environ.get("REPRO_REMAT_POLICY")
+    os.environ["REPRO_REMAT_POLICY"] = policy
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_REMAT_POLICY")
+        else:
+            os.environ["REPRO_REMAT_POLICY"] = old
+
+
+def backward_peak(loss_fn, params, batch, leaves) -> tuple:
+    """One loss and backward: the gradients and the peak device memory
+    above what was allocated before (GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = torch.autograd.grad(loss_fn(params, batch), leaves)
+    torch.cuda.synchronize()
+    return grads, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def train_dots(root: Path, counters: Counters) -> dict:
+    """Phase (s1): phase (k)'s run (minicpm-2b at full width and depth, 5
+    steps of 8 x 1024 through ``launch.train.train``) under
+    ``REPRO_REMAT_POLICY=dots``, a traced step, and one backward on the same
+    state and batch under ``full`` and under ``dots``, whose gradients must
+    be the same bits."""
+    import torch
+
+    from repro_torch.launch.train import RunConfig, run_model_config, train, train_config
+    from repro_torch.training.train_loop import make_loss_fn, make_train_step
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    run = RunConfig(**TRAIN_RUN, seed=SEED, ckpt_dir=str(root / "ckpt"))
+    cfg = run_model_config(run)
+    with remat_policy("dots"):
+        torch.cuda.reset_peak_memory_stats()
+        counters.zero()
+        out = train(run, device="cuda", log_every=10**9)
+        counts = counters.read("phase s1 (training under dots)", ())
+        check(counts["flash_attention"] == 0,
+              f"phase s1: training launched flash_attention {counts['flash_attention']} times")
+        out["manager"].close()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i, (loss, gn, s) in enumerate(zip(out["losses"], out["grad_norms"], out["step_s"])):
+            check(np.isfinite(loss) and np.isfinite(gn), f"phase s1: step {i}: loss {loss}, "
+                  f"grad norm {gn}")
+            log(f"phase s1: step {i}: loss {loss:.6f}, grad norm {gn:.6f}, step wall {s:.6f} s"
+                + (" (the first: allocations, cuBLAS plans)" if i == 0 else ""))
+        steady = out["step_s"][1:]
+        mean = sum(steady) / len(steady)
+        tokens = run.global_batch * run.seq_len
+        fwd = forward_flops(cfg, run.global_batch, run.seq_len)
+        bound_s = 3 * fwd / TENSOR_FLOPS_PER_S
+        D, F = cfg.d_model, cfg.d_ff
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        saved_w = D * H * hd + 2 * D * KV * hd + H * hd * D + 2 * D * F
+        skipped = 2 * tokens * cfg.n_layers * saved_w
+        saved_bytes = tokens * cfg.n_layers * (H * hd + 2 * KV * hd + D + 2 * F) * 2
+        log(f"phase s1: {cfg.name} under dots: batch {run.global_batch} x {run.seq_len}; steps "
+            f"1-{len(out['step_s']) - 1}: mean {mean:.6f} s, min {min(steady):.6f}, max "
+            f"{max(steady):.6f} ({tokens / mean:.1f} tokens/s); bound {bound_s:.6f} s (3 forward "
+            f"passes, {3 * fwd / 1e12:.3f} TFLOP; bound / step {bound_s / mean:.4f}); the "
+            f"recompute dots leaves out: {skipped / 1e12:.3f} TFLOP of weight products "
+            f"({', '.join(S_SAVED)}), {skipped / TENSOR_FLOPS_PER_S:.6f} s at the peak rate; "
+            f"their saved outputs {saved_bytes / 1e9:.3f} GB ({saved_bytes / 2**30:.3f} GiB); "
+            f"peak device memory {peak:.3f} GiB")
+        bundle, tcfg = out["bundle"], train_config(run)
+        state = traced_step(counters, "s1", make_train_step(bundle, tcfg), out["final_state"],
+                            out["pipe"].next_batch())
+    params, batch = state["params"], out["pipe"].next_batch()
+    del state, out
+    torch.cuda.empty_cache()
+
+    names = [k for k, _ in tree_paths(params)]
+    leaves = tree_leaves(params)
+    loss_fn = make_loss_fn(bundle, tcfg)
+    with remat_policy("full"):
+        full, full_peak = backward_peak(loss_fn, params, batch, leaves)
+    with remat_policy("dots"):
+        dots, dots_peak = backward_peak(loss_fn, params, batch, leaves)
+    counters.read("phase s1 (checks)", ())
+    differ = {n: float((a.float() - b.float()).abs().max())
+              for n, a, b in zip(names, full, dots) if not torch.equal(a, b)}
+    check(not differ, f"phase s1: {len(differ)} of {len(names)} leaves' gradients differ "
+          f"between full and dots: {dict(list(differ.items())[:6])}")
+    log(f"phase s1: one backward on the same state and batch: all {len(names)} leaves' "
+        f"gradients bit-equal under full and dots; the backward's peak above the state "
+        f"{full_peak:.3f} GiB (full), {dots_peak:.3f} GiB (dots)")
+    del full, dots, params, leaves
+    torch.cuda.empty_cache()
+    return {"step_s": mean, "tokens_s": tokens / mean, "bound_s": bound_s, "peak_gib": peak,
+            "backward_peak_gib": (full_peak, dots_peak)}
+
+
+# a wrapper planted to write into its argument through a launch: the XOR
+# kernel handed its first argument as its output, which no dispatch mode sees
+PLANTED_AUDIT = """
+import sys
+import torch
+from repro_torch import kernels
+from repro_torch.analysis import cli, kernel_audit as KA
+
+def xor_into_argument(a, b):
+    kernels.launch("block_xor_delta", a.device, a.data_ptr(), b.data_ptr(), a.data_ptr(),
+                   a.shape[0])
+    return torch.empty_like(a)
+
+def build(dev):
+    g = torch.Generator().manual_seed(0)
+    a, b = (torch.randint(0, 2**31 - 1, (64, 8, 128), generator=g, dtype=torch.int32).to(dev)
+            for _ in range(2))
+    return xor_into_argument, (a, b)
+
+KA.audit_targets = lambda: [KA.AuditTarget("planted.xor_into_argument", build)]
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def cli_run(label: str, args: list, want_rc: int) -> tuple:
+    """Run ``python args`` from the checkout's root as a subprocess; its exit
+    status must be ``want_rc``.  Returns (stdout, wall)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == want_rc, f"phase s2: {label} exited {proc.returncode}, not "
+          f"{want_rc}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    log(f"phase s2: {label}: exit {proc.returncode} in {wall:.3f} s")
+    return proc.stdout, wall
+
+
+def drive_clis(root: Path, counters: Counters, smi: str) -> dict:
+    """Phase (s2): the two CLIs on the card, each a subprocess whose exit
+    status is checked: the kernel audit against the committed baseline (every
+    target ran, nothing new: 0) and over a planted wrapper alone that writes
+    its argument through a launch (1, ``audit.arg-write`` from the bytes); fsck of
+    the synthetic store (0) and of a store with one object deleted (1,
+    ``fsck.missing-object``); the obs summary and the tracer's overhead
+    gate."""
+    from repro_torch.analysis.cli import DEFAULT_BASELINE, build_synthetic_store
+    from repro_torch.analysis.kernel_audit import audit_targets
+
+    baseline = ["--baseline", str(ROOT / DEFAULT_BASELINE)]
+    out, _ = cli_run("audit", ["-m", "repro_torch.analysis", "audit", "--json", *baseline], 0)
+    report = json.loads(out)
+    ran = report["checked"]["audit.trace"]
+    traced = [f for f in report["findings"] if f["rule"] == "audit.trace"]
+    check(ran == len(audit_targets()) and not traced and report["new"] == 0,
+          f"phase s2: audit ran {ran} of {len(audit_targets())} targets, {traced}, "
+          f"{report['new']} new")
+    by_rule: dict = {}
+    for f in report["findings"]:
+        key = f"{f['rule']}:{f['severity']}"
+        by_rule[key] = by_rule.get(key, 0) + 1
+    log(f"phase s2: audit on the card: {ran} targets ran, {sum(report['checked'].values())} "
+        f"checks; findings by rule {json.dumps(by_rule, sort_keys=True)}; 0 new")
+
+    out, _ = cli_run("audit with a planted wrapper", ["-c", PLANTED_AUDIT, "audit", "--json",
+                                                      *baseline], 1)
+    planted = [f for f in json.loads(out)["findings"]
+               if f["subject"] == "planted.xor_into_argument" and f["rule"] == "audit.arg-write"]
+    check(len(planted) == 1 and planted[0]["severity"] == "error"
+          and "argument 0's bytes changed" in planted[0]["message"],
+          f"phase s2: the planted write was not caught by its bytes: {planted}")
+    log(f"phase s2: the planted write caught: {planted[0]['message']}")
+
+    cli_run("fsck --synthetic", ["-m", "repro_torch.analysis", "fsck", "--synthetic"], 0)
+    store = root / "fsck_store"
+    counters.zero()
+    build_synthetic_store(store).close()
+    counters.read("phase s2 (the fsck store's commits and repack)", ("changed_block_mask",))
+    objects = sorted((store / "objects").rglob("*.zst"))
+    objects[len(objects) // 2].unlink()
+    out, _ = cli_run("fsck of a store with an object deleted",
+                     ["-m", "repro_torch.analysis", "fsck", str(store), "--json"], 1)
+    rules = {f["rule"] for f in json.loads(out)["findings"]}
+    check("fsck.missing-object" in rules, f"phase s2: fsck found {rules}")
+
+    out, _ = cli_run("obs summary", ["-m", "repro_torch.obs", "summary", "--synthetic",
+                                     "--json"], 0)
+    spans = json.loads(out)["spans"]
+    check({"store.commit", "delta.apply_chains", "core.optimize"} <= set(spans),
+          f"phase s2: spans {sorted(spans)}")
+    log("phase s2: obs summary spans: " + ", ".join(
+        f"{k} x{v['count']}" for k, v in sorted(spans.items())))
+    out, _ = cli_run("obs overhead", ["-m", "repro_torch.obs", "overhead", "--budget-pct",
+                                      str(S_OVERHEAD_BUDGET_PCT)], 0)
+    overhead = json.loads(out[: out.rindex("}") + 1])
+    log(f"phase s2: disabled-tracer overhead {overhead['overhead_pct']}% of a "
+        f"{overhead['warm_checkout_us']} us warm checkout ({overhead['instrumentation_points']} "
+        f"points x {overhead['disabled_span_ns']} ns; gated at {overhead['budget_pct']}%, the "
+        f"CLI's default 2.0%) on {smi}")
+    return {"overhead_pct": overhead["overhead_pct"]}
+
+
+def card_name_and_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def drive_dots_and_clis(root: Path, counters: Counters) -> dict:
+    """Phase (s): (s1) training under the dots remat policy, (s2) the CLIs."""
+    return {"s1": train_dots(root, counters),
+            "s2": drive_clis(root, counters, card_name_and_limit())}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4664,16 +4926,14 @@ def main(argv=None) -> int:
         phase("q", drive_moe_training, Path(tmp), counters)
     with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
         phase("r", drive_recurrent_training, Path(tmp), counters)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
+        phase("s", drive_dots_and_clis, Path(tmp), counters)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"total wall {time.perf_counter() - start:.3f} s")
 
     for r in results:
         r["launches"] = counters.total[r["name"]]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card_name_and_limit())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_floor_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in results]}))

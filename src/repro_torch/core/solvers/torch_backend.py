@@ -355,9 +355,10 @@ class LmgScorer:
         )
         _, i = min_argmin_1d(-rho)
         i1 = i.view(1).long()
+        # the f32 scores travel as their int32 bits beside i and the flag
         picked = torch.cat([
-            i1.double(), rho[i1].double(), dw[i1].double(), dd[i1].double(),
-            ok.any().view(1).double(),
+            i.view(1), rho[i1].view(torch.int32), dw[i1].view(torch.int32),
+            dd[i1].view(torch.int32), ok.any().view(1).to(torch.int32),
         ]).cpu()  # the round's one host sync
-        i_, rho_i, dw_i, dd_i, any_ok = picked.tolist()
-        return int(i_), rho_i, dw_i, dd_i, bool(any_ok)
+        rho_i, dw_i, dd_i = picked[1:4].view(torch.float32).tolist()
+        return int(picked[0]), rho_i, dw_i, dd_i, bool(picked[4])

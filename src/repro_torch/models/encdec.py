@@ -9,8 +9,9 @@ JAX package scans the stacked layers, the port loops over the stack index
 in Python.  Under autograd (training) each encoder layer and each decoder
 layer of ``mode="train"`` runs inside ``torch.utils.checkpoint``, as the
 JAX package's scans run ``jax.checkpoint``-ed bodies: only each layer's
-input is kept and the layer is recomputed in the backward pass.  A decoder
-layer computes its cross-attention K/V from ``enc_out`` inside the
+input is kept and the layer is recomputed in the backward pass, whatever
+``REPRO_REMAT_POLICY`` says (the JAX package's stacks do not read it).  A
+decoder layer computes its cross-attention K/V from ``enc_out`` inside the
 checkpoint, so the encoder's output gets the sum of the 12 layers'
 gradients and no layer keeps its K/V.  Attention under autograd takes the
 chunked softmax (``attention._full_attention``), the flash kernel never;

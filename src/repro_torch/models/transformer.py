@@ -19,8 +19,15 @@ layer starts from a zero state and writes none (``models.recurrent``), so
 its recompute is a pure function of its input and parameters, and
 RecurrentGemma's windowed ``attn`` layers train through
 ``gqa_forward(window=)``, the block-local softmax, as the JAX package's
-training does.  The ``REPRO_REMAT_POLICY=dots`` knob has no counterpart
-yet (ROADMAP Queue 1).
+training does.  ``REPRO_REMAT_POLICY``, read at each train-mode call as
+the JAX package reads it when it traces, picks what the checkpoint keeps:
+``dots`` also saves the outputs of the contractions with no batch dimension
+(:func:`dots_policy`, JAX's ``dots_with_no_batch_dims_saveable``: the
+products against a weight, which reach ``aten.mm`` through ``matmul``'s
+fold, but for the one whose output the backward never reads), so the
+backward recomputes only the rest; any other value is the whole-layer
+``full``.  The saved products are the ones the recompute would make, so the
+gradients are the same bits either way.
 
 Block kinds: ``attn`` (GQA, with ``cfg.attn_window`` a sliding window),
 ``mla`` (DeepSeek) and ``rglru`` (Griffin), each paired with an MLP or an
@@ -35,10 +42,16 @@ JAX package.  The expert-parallel MoE waits for the pod tooling
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig
 from ..kernels import resolve_device
@@ -338,6 +351,44 @@ def _train_block(cfg: ModelConfig, kind: str, use_moe: bool, p: Params,
     return block_apply(cfg, kind, use_moe, p, x, mode="train")[0]
 
 
+#: the products ``dots`` may save: contractions with no batch dimension.
+#: The batched ones (the chunked and block-local softmax, the WKV, the MoE's
+#: expert stacks and combine) reach ``aten.bmm`` and are recomputed, as JAX
+#: recomputes its ``dot_general`` s with batch dimensions.
+NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def unread_products(p: Params) -> frozenset:
+    """The weights (by ``data_ptr``) of a layer's products whose outputs its
+    backward never reads: the MLP's (or the shared expert's) output
+    product, which only the residual add reads.  JAX keeps a saveable value
+    only where the backward needs it, and neither package recomputes these."""
+    mlp, moe = p.get("mlp") or {}, p.get("moe") or {}
+    weights = (mlp.get("w_down"), mlp.get("w_out"), moe.get("shared_w_down"))
+    return frozenset(w.data_ptr() for w in weights if w is not None)
+
+
+def dots_policy(unread: frozenset, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy of ``REPRO_REMAT_POLICY=dots``: save each
+    no-batch product that the backward reads (its weight is the last
+    operand), recompute everything else."""
+    if op in NO_BATCH_PRODUCTS and args[-1].data_ptr() not in unread:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_kwargs(p: Params) -> dict:
+    """The checkpoint's arguments for layer ``p`` under the current
+    ``REPRO_REMAT_POLICY``: ``dots`` adds its selective context; any other
+    value is ``full``."""
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if os.environ.get("REPRO_REMAT_POLICY", "full") == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(dots_policy, unread_products(p)))
+    return kw
+
+
 def _run_segments(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                   mode: str, caches=None, pos: int = 0):
     remat = mode == "train" and torch.is_grad_enabled()
@@ -348,8 +399,8 @@ def _run_segments(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         for r in range(seg.repeats):
             for j, (kind, use_moe) in enumerate(seg.unit):
                 if remat:
-                    x = checkpoint(_train_block, cfg, kind, use_moe, p_units[j][r], x,
-                                   use_reentrant=False, preserve_rng_state=False)
+                    p = p_units[j][r]
+                    x = checkpoint(_train_block, cfg, kind, use_moe, p, x, **remat_kwargs(p))
                     continue
                 x, _ = block_apply(
                     cfg, kind, use_moe, p_units[j][r], x, mode=mode,

@@ -1,7 +1,6 @@
 """Observability for the port: span tracing and live tradeoff telemetry.
 
-The port's copy of the JAX package's ``repro.obs`` (the CLI stays with the
-JAX package for now):
+The port's copy of the JAX package's ``repro.obs``:
 
 * :mod:`.tracer` — the span tracer the service, store, materializer, delta
   codec and ``optimize`` record into; disabled by default, one attribute
@@ -10,6 +9,8 @@ JAX package for now):
   Prometheus-style text over a ``DatasetService.stats()`` snapshot.
 * :mod:`.tradeoff` — :class:`TradeoffMonitor`: live (C, R) samples on every
   commit and repack of a store, with a post-repack baseline.
+* :mod:`.cli` — ``python -m repro_torch.obs {summary,trace,convert,prom,overhead}``
+  (``--device cpu`` for the plain versions; the default is the card).
 
 Quick start::
 
