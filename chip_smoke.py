@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent, encoder-decoder) and training (every family; the dots remat policy) paths, its kernel auditor and its CLIs on one NVIDIA GPU.
+"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent, encoder-decoder) and training (every family; the dots remat policy) paths, its kernel auditor, its CLIs and its example twins on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -301,13 +301,29 @@ use (into ``build/``).  Phases:
     --synthetic --json`` and ``overhead`` (the disabled tracer's share of a
     warm checkout, gated at ``S_OVERHEAD_BUDGET_PCT`` and printed beside the
     card's name and power limit).
+(t) The example twins, each ``examples/<name>_torch.py``'s ``main(["--device",
+    "cuda"])`` in this process, the launch counters zeroed before it and read
+    after it: quickstart (Figure 1's grid, the spec grid on ``dc_like(150,
+    seed=7)``, the tensor ``Repository`` with a P6 repack), dataset_versions
+    (four 200,000-token shards, cleaning, dedup, ``VersionedDatasetPipeline``),
+    serve_batched (8 coalesced checkouts, a batch of 5, a warm repeat),
+    serve_dataset (commits between reads, fsck, a P2 repack, under the tracer)
+    and branching_finetune (reduced minitron-4b fine-tuned on two branches, a
+    soup, 26 checkouts, a P3 repack).  Each twin's kernels must launch, and
+    its invariants hold: quickstart's Figure 1 and frontier numbers and
+    dataset_versions' bytes stored and diff equal the same twin's on the CPU;
+    7 of 8 coalesced and 1 batch dispatch; 0 invalidations and a purge; 25 of
+    26 checkouts from the cache.  Then the isolation contract on phase (b)'s
+    ``tokens/i8`` (edited) and ``mask/valid`` (shared) leaves: a write into a
+    warm checkout, into one result of a batch and into one of two coalesced
+    service results must leave every later tree equal to its sha256.
 
 Phases (e) and (h)'s kernel checks run right after (a), so that every
 kernel is checked before the main path starts.  The launch counters of the
 kernels are set to 0 before each main-path phase and read after it; a
 kernel its phase should use that launched no time fails the run, as does
 any mismatch.  Phases (b), (c), (f), (g), (i), (j), (l), (h)'s requests,
-(m), (n), (o), (p), (k), (q), (r) and (s) are the main path ((j) runs after
+(m), (n), (o), (p), (k), (q), (r), (s) and (t) are the main path ((j) runs after
 (d), on (b)'s ground truth; (m) to (s) run last, each alone on the card's
 memory); the launches of the kernel checks, which compare kernels with their
 plain versions, are not counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
@@ -352,7 +368,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefghijklmnopqrs"
+PHASES = "abcdefghijklmnopqrst"
 
 
 def log(msg: str) -> None:
@@ -715,7 +731,8 @@ class Counters:
             self.total[name] += n
         log(f"launches {phase}: {json.dumps(counts)}")
         for name in needs:
-            check(counts[name] > 0, f"{phase}: kernel {name} was never launched")
+            check(sum(counts[n] for n in name.split("|")) > 0,
+                  f"{phase}: kernel {name} was never launched")
         return counts
 
 
@@ -4845,6 +4862,150 @@ def drive_clis(root: Path, counters: Counters, smi: str) -> dict:
     return {"overhead_pct": overhead["overhead_pct"]}
 
 
+# ------------------------------------------------------- (t) the example twins
+TWINS = ("quickstart", "dataset_versions", "serve_batched", "serve_dataset",
+         "branching_finetune")
+# the kernels each twin's path must launch on the card; "a|b" takes either
+TWIN_NEEDS = {
+    "quickstart": ("changed_block_mask", "chain_delta_apply|sparse_delta_apply",
+                   "segment_min_rows", "segment_argmin_rows", "min_argmin_1d", "mp_loop"),
+    "dataset_versions": ("changed_block_mask", "chain_delta_apply|sparse_delta_apply"),
+    "serve_batched": ("changed_block_mask", "chain_delta_apply|sparse_delta_apply"),
+    "serve_dataset": ("changed_block_mask", "segment_min_rows", "segment_argmin_rows"),
+    # every save changes every block, so nothing is stored as a delta and no
+    # delta is applied; the P3 repack starts from the SPT
+    "branching_finetune": ("changed_block_mask", "segment_min_rows", "segment_argmin_rows"),
+}
+# phase (b)'s leaves that the isolation check commits: an edited and a shared one
+ISOLATION_LEAVES = ("tokens/i8", "mask/valid")
+
+
+def load_twin(stem: str):
+    """``examples/<stem>_torch.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"{stem}_torch",
+                                                  ROOT / "examples" / f"{stem}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quietly(fn, *args):
+    """``fn(*args)`` with its standard output kept out of the log."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def scribble(tree: dict) -> None:
+    """Write into the first 4 KiB of every leaf."""
+    import torch
+
+    for t in tree.values():
+        raw = t.view(-1).view(torch.uint8)[:BLOCK]
+        raw.copy_(raw ^ 1)
+
+
+def isolation_check(root: Path, counters: Counters) -> None:
+    """Phase (t)'s isolation contract on the card: a write into a warm
+    checkout, into one result of a batch and into one of two coalesced
+    service results reaches no other tree; each later tree is held against
+    the ground truth by sha256."""
+    import asyncio
+
+    from repro_torch.store import Repository
+
+    rng = np.random.default_rng(SEED)
+    v0 = make_dataset(rng, {n: LEAVES[n] for n in ISOLATION_LEAVES})
+    v1 = dict(v0, **{ISOLATION_LEAVES[0]: edit_blocks(rng, v0[ISOLATION_LEAVES[0]])})
+    truth = [{n: leaf_digest(a) for n, a in tree.items()} for tree in (v0, v1)]
+    counters.zero()
+    repo = Repository(root, device="cuda")
+    vids = [repo.commit(as_payload(tree)) for tree in (v0, v1)]
+
+    def holds(tree: dict, i: int, what: str) -> None:
+        got = {n: leaf_digest(t) for n, t in tree.items()}
+        check(got == truth[i], f"phase t: {what} is not v{i}'s committed content")
+
+    repo.checkout(vids[1])
+    t0 = time.perf_counter()
+    warm = repo.checkout(vids[1])
+    warm_s = time.perf_counter() - t0
+    holds(warm, 1, "a warm checkout")
+    scribble(warm)
+    holds(repo.checkout(vids[1]), 1, "the checkout after a write into a warm one")
+    a, b = repo.checkout_many(vids)
+    scribble(a)
+    holds(b, 1, "a batch's other result after a write into its first")
+    holds(repo.checkout(vids[0]), 0, "the checkout after a write into a batch result")
+
+    async def coalesced():
+        async with repo.serve(readers=2, batch_window_s=0.005) as svc:
+            first, second = await asyncio.gather(svc.checkout(vids[1]),
+                                                 svc.checkout(vids[1]))
+            scribble(first)
+            return second, await svc.checkout(vids[1]), svc.metrics.counter("checkout.coalesced")
+
+    second, later, coalesced_n = asyncio.run(coalesced())
+    check(coalesced_n == 1, f"phase t: {coalesced_n} of 2 service requests coalesced, not 1")
+    holds(second, 1, "a coalesced client's tree after the other client wrote into its own")
+    holds(later, 1, "the service's next checkout after a client's write")
+    repo.close()
+    counters.read("phase t (isolation)", ("changed_block_mask",
+                                          "chain_delta_apply|sparse_delta_apply"))
+    mib = sum(a.nbytes for a in v1.values()) / 2**20
+    log(f"phase t: isolation held on the card ({mib:.1f} MiB a version: a warm checkout, a "
+        f"batch result and a coalesced service result written into; every later tree equal "
+        f"to its sha256); the warm checkout with its copy {warm_s:.6f} s")
+
+
+def drive_twins(root: Path, counters: Counters) -> dict:
+    """Phase (t): each example twin's ``main(["--device", "cuda"])`` in this
+    process, its kernels counted, its printed invariants held against the
+    same twin on the CPU or against the JAX original's numbers; then the
+    isolation contract."""
+    root.mkdir(parents=True, exist_ok=True)
+    walls = {}
+    for stem in TWINS:
+        twin = load_twin(stem)
+        args = ["--device", "cuda"]
+        if stem == "serve_dataset":
+            args += ["--trace-out", str(root / "serve_dataset_trace.json")]
+        log(f"phase t: --- examples/{stem}_torch.py on the card ---")
+        counters.zero()
+        t0 = time.perf_counter()
+        facts = twin.main(args)
+        walls[stem] = time.perf_counter() - t0
+        counts = counters.read(f"phase t ({stem})", TWIN_NEEDS[stem])
+        launched = {k: v for k, v in counts.items() if v}
+        if stem == "quickstart":
+            cpu = {"figure1": quietly(twin.figure1, "cpu"),
+                   "frontier": quietly(twin.frontier, "cpu")}
+            for key, want in cpu.items():
+                check(facts[key] == want, f"phase t: quickstart's {key} on the card "
+                      f"{facts[key]} != the CPU's {want}")
+        elif stem == "dataset_versions":
+            want = quietly(twin.main, ["--device", "cpu"])
+            check(facts == want, f"phase t: dataset_versions on the card {facts} != the CPU's "
+                  f"{want}")
+        elif stem == "serve_batched":
+            check(facts["coalesced"] == 7 and facts["batch_dispatches"] == 1,
+                  f"phase t: serve_batched {facts}: not 7 of 8 coalesced and 1 dispatch")
+        elif stem == "serve_dataset":
+            check(facts["invalidations"] == 0 and facts["purges"] >= 1,
+                  f"phase t: serve_dataset {facts}: not 0 invalidations and a purge")
+        else:
+            check(facts["hits_of_26"] == 25,
+                  f"phase t: branching_finetune served {facts['hits_of_26']} of 26 from the "
+                  f"cache, not 25")
+        log(f"phase t: {stem}: wall {walls[stem]:.3f} s on the card; launches "
+            f"{json.dumps(launched)}; invariants held")
+    isolation_check(root / "isolation", counters)
+    return walls
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4915,6 +5076,7 @@ def main(argv=None) -> int:
         phase("g", drive_repack, Path(tmp) / "repack", counters)
         phase("i", drive_service, Path(tmp) / "service", counters)
         phase("l", drive_checkpoint_loop, Path(tmp) / "train_loop", counters)
+        phase("t", drive_twins, Path(tmp) / "twins", counters)
     phase("h", drive_serving, counters)
     phase("m", drive_deepseek, counters)
     phase("n", drive_phi, counters)

@@ -182,7 +182,6 @@ def sssp(
     rows = padded_in_rows(ea, weight=weight)
     nvp = rows.nvp
     ps = torch.from_numpy(rows.ids).to(dev)
-    ps64 = ps.long()
     pw = torch.from_numpy(rows.w).to(dev)
     eps = _f32(EPS, dev)
     inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
@@ -190,7 +189,7 @@ def sssp(
     dist[0] = 0.0
     while True:
         cur = dist[:nvp]
-        row = segment_min_rows(dist[ps64] + pw)
+        row = segment_min_rows(dist[ps] + pw)
         new = torch.where(row < cur - eps, row, cur)
         changed = (new < cur).any()
         dist[:nvp] = new
@@ -201,11 +200,11 @@ def sssp(
     # lists its in-edges by ascending source id (EdgeArrays.rperm sorts by
     # (dst, src)), so the first column holding the row's least eligible
     # dist[u] is that source; a row with none (m1 = +inf) has no parent
-    du = dist[ps64]
+    du = dist[ps]
     dv = dist[:nvp, None]
     elig = (du + pw == dv) & torch.isfinite(dv)
     key = torch.where(elig, du, inf)
-    col = segment_argmin_rows(key).long()[:, None]
+    col = segment_argmin_rows(key)[:, None]
     m1 = key.gather(1, col)[:, 0]
     pu = ps.gather(1, col)[:, 0]
     parent = torch.where(torch.isfinite(dist[:nvp]) & torch.isfinite(m1), pu, -1)
@@ -227,9 +226,9 @@ def prim_state(ea: EdgeArrays, dev: torch.device):
     bp = torch.full((nvp + 2,), -1, dtype=torch.int32, device=dev)
     in_tree = torch.zeros((nvp + 2,), dtype=torch.bool, device=dev)
     in_tree[0] = True
-    ridx = torch.from_numpy(root_dst).to(dev).long()
-    best.index_copy_(0, ridx, torch.from_numpy(root_delta).to(dev))
-    bp.index_copy_(0, ridx, torch.zeros_like(ridx, dtype=torch.int32))
+    ridx = torch.from_numpy(root_dst).to(dev)
+    best[ridx] = torch.from_numpy(root_delta).to(dev)
+    bp[ridx] = 0
     return pd, pw, best, bp, in_tree
 
 
@@ -252,7 +251,7 @@ def mp_state(ea: EdgeArrays, theta: float, dev: torch.device):
     pd = torch.from_numpy(rows.ids).to(dev)
     pdelta = torch.from_numpy(rows.w).to(dev)
     pphi = torch.from_numpy(rows.w2).to(dev)
-    trash = torch.tensor(nvp + 1, dtype=torch.long, device=dev)
+    trash = torch.tensor(nvp + 1, dtype=torch.int32, device=dev)
     # θ + CONSTRAINT_TOL as the JAX package computes it: an f32 add of θ
     # rounded to f32 and the tolerance rounded to f32
     bound = _f32(theta, dev) + CONSTRAINT_TOL
@@ -264,11 +263,11 @@ def mp_state(ea: EdgeArrays, theta: float, dev: torch.device):
     in_tree = torch.zeros((nvp + 2,), dtype=torch.bool, device=dev)
     in_tree[0] = True
     rphi = torch.from_numpy(root_phi).to(dev)
-    rdst = torch.from_numpy(root_dst).to(dev).long()
+    rdst = torch.from_numpy(root_dst).to(dev)
     ridx = torch.where(rphi <= bound, rdst, trash)
-    d.index_copy_(0, ridx, rphi)
-    l.index_copy_(0, ridx, torch.from_numpy(root_delta).to(dev))
-    p.index_copy_(0, ridx, torch.zeros_like(ridx, dtype=torch.int32))
+    d[ridx] = rphi
+    l[ridx] = torch.from_numpy(root_delta).to(dev)
+    p[ridx] = 0
     return pd, pdelta, pphi, bound, l, d, p, in_tree
 
 
@@ -314,8 +313,8 @@ class LmgScorer:
             full = np.concatenate([a, np.full(ncp - nc, fill, dt)]).astype(dt)
             return torch.from_numpy(full).to(dev)
 
-        self._cu = pad(cu, 0, np.int32).long()
-        self._cv = pad(cv, 0, np.int32).long()
+        self._cu = pad(cu, 0, np.int32)
+        self._cv = pad(cv, 0, np.int32)
         self._cdelta = pad(cand_delta, 0.0, np.float32)
         self._cphi = pad(cand_phi, 0.0, np.float32)
         self._inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
@@ -354,7 +353,7 @@ class LmgScorer:
             torch.where(ok & (dw <= 0), self._inf, self._neg1),
         )
         _, i = min_argmin_1d(-rho)
-        i1 = i.view(1).long()
+        i1 = i.view(1)
         # the f32 scores travel as their int32 bits beside i and the flag
         picked = torch.cat([
             i.view(1), rho[i1].view(torch.int32), dw[i1].view(torch.int32),

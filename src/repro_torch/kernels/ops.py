@@ -124,9 +124,9 @@ def _compact(mask: torch.Tensor, new_blocks: torch.Tensor, capacity: int):
     pad_row = torch.argmin(m).to(torch.int32)  # first unchanged row (0 if none)
     idx = torch.full((capacity,), -1, dtype=torch.int32, device=m.device)
     rows = torch.arange(nb, dtype=torch.int32, device=m.device)
-    idx[order[keep].long()] = rows[keep]
+    idx[order[keep]] = rows[keep]
     idx = torch.where(idx >= 0, idx, pad_row)
-    gathered = new_blocks[idx.long()]
+    gathered = new_blocks[idx]
     return idx, gathered, m.sum(dtype=torch.int32)
 
 

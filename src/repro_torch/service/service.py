@@ -9,8 +9,10 @@ pools, with three load-bearing mechanisms:
 * **Request coalescing** — a checkout resolves its ref to a vid at enqueue
   time (the snapshot point); if a materialization for that vid is already in
   flight, the request awaits the same future instead of decoding twice
-  (``checkout.coalesced`` counts these).  Correct because a version's tree
-  is immutable: whatever commit lands meanwhile, vid → tree never changes.
+  (``checkout.coalesced`` counts these).  Correct because a version's
+  content is immutable: whatever commit lands meanwhile, vid → tree never
+  changes.  Each waiter after the first gets its own copy of the tree, made
+  before any waiter resumes, so a client may write into what it was given.
   Waiters await the shared future through ``asyncio.shield`` — a client
   timeout cancelling one coalesced request cannot cancel the future the
   other waiters share.
@@ -154,6 +156,13 @@ class _AsyncRWLock:
             cond.notify_all()
 
 
+def _own_copies(tree: FlatTree, n: int) -> List[FlatTree]:
+    """``tree`` and ``n - 1`` copies of it that share no storage."""
+    return [tree] + [
+        {k: t.clone() for k, t in tree.items()} for _ in range(n - 1)
+    ]
+
+
 @dataclasses.dataclass
 class _PendingCheckout:
     """One enqueued checkout awaiting its batch: vid, future, enqueue time,
@@ -161,7 +170,7 @@ class _PendingCheckout:
     parents the retroactive queue-wait span under it."""
 
     vid: int
-    future: "asyncio.Future[FlatTree]"
+    future: "asyncio.Future[List[FlatTree]]"
     enqueued_at: float
     span: Any = None
 
@@ -223,7 +232,10 @@ class DatasetService:
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._reader_pool: Optional[ThreadPoolExecutor] = None
         self._writer_pool: Optional[ThreadPoolExecutor] = None
-        self._inflight: Dict[int, "asyncio.Future[FlatTree]"] = {}
+        # vid -> the future its requests share, settled with one tree a
+        # request; _sharers counts the requests on it
+        self._inflight: Dict[int, "asyncio.Future[List[FlatTree]]"] = {}
+        self._sharers: Dict[int, int] = {}
         self._pending: List[_PendingCheckout] = []
         self._window_handle: Optional[asyncio.TimerHandle] = None
         self._dispatch_tasks: Set["asyncio.Task"] = set()
@@ -305,8 +317,9 @@ class DatasetService:
         """Materialize the tree at ``ref`` (default: head tip).
 
         Coalesces with any in-flight materialization of the same vid and
-        folds into the current batching window otherwise.  Returns a fresh
-        dict per request; the arrays are shared with the cache, read-only.
+        folds into the current batching window otherwise.  The tree is the
+        request's own: it shares no storage with the cache or with another
+        request's tree.
         """
         self._require_started()
         t0 = self._loop.time()
@@ -318,12 +331,14 @@ class DatasetService:
                 vid = self.repo.resolve(ref)  # snapshot point
                 fut = self._inflight.get(vid)
                 if fut is not None:
+                    self._sharers[vid] += 1
                     self.metrics.inc("checkout.coalesced")
                     if sp:
                         sp.set(vid=vid, coalesced=True)
                 else:
                     fut = self._loop.create_future()
                     self._inflight[vid] = fut
+                    self._sharers[vid] = 1
                     # the pending entry itself holds a read claim (released
                     # by _dispatch after the batch settles), so a repack
                     # cannot slip between enqueue and dispatch even if
@@ -339,7 +354,7 @@ class DatasetService:
                 # onto this vid — one waiter's cancellation must neither
                 # cancel the others nor poison _inflight with a cancelled
                 # future for later arrivals
-                tree = await asyncio.shield(fut)
+                tree = (await asyncio.shield(fut)).pop()
         except Exception:
             self.metrics.inc("errors.checkout")
             if sp:
@@ -426,24 +441,42 @@ class DatasetService:
                 self.metrics.inc("checkout.warm_misses", len(vids) - warm)
                 if bsp:
                     bsp.set(warm=warm)
+                # the futures leave _inflight before the copies are made,
+                # so the number of requests on each is final; a later
+                # request for the vid starts a decode (a warm hit) of its own
+                sharers = [self._retire(p) for p in batch]
+                if any(n > 1 for n in sharers):
+                    trees = await self._loop.run_in_executor(
+                        self._reader_pool,
+                        lambda: [_own_copies(t, n) for t, n in zip(trees, sharers)],
+                    )
+                else:
+                    trees = [[t] for t in trees]
             except Exception as exc:
                 for p in batch:
-                    self._inflight.pop(p.vid, None)
+                    self._retire(p)
                     if not p.future.done():
                         p.future.set_exception(exc)
                         # consume: every waiter may have been cancelled, and
                         # an unretrieved future exception logs noise at GC
                         p.future.exception()
                 return
-            for p, tree in zip(batch, trees):
-                self._inflight.pop(p.vid, None)
+            for p, own in zip(batch, trees):
                 if not p.future.done():
-                    p.future.set_result(tree)
+                    p.future.set_result(own)
         finally:
             bsp.end()
             # shielded: the claims MUST drop even if this task is cancelled
             # mid-release, or a waiting writer hangs forever
             await asyncio.shield(self._rw.release_read(len(batch)))
+
+    def _retire(self, p: _PendingCheckout) -> int:
+        """Take ``p``'s future out of ``_inflight`` (if a later request has
+        not replaced it already); returns the requests that share it."""
+        if self._inflight.get(p.vid) is not p.future:
+            return 1
+        del self._inflight[p.vid]
+        return self._sharers.pop(p.vid)
 
     # ---------------------------------------------------------------- write
     async def commit(

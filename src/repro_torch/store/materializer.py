@@ -27,9 +27,14 @@ checkout routes through a :class:`Materializer`, which composes three parts:
   feeding every decoded tree through the cache, and exposes hit/decode
   statistics.
 
-Torch tensors carry no read-only flag, so (unlike the JAX package, which
-freezes its arrays) the tensors of a checked-out tree are shared with the
-cache and with other checkouts: copy before writing into one.
+Torch tensors carry no read-only flag, so where the JAX package freezes the
+arrays it hands out, :meth:`Materializer.checkout_many` hands out storage
+that nothing else holds: a leaf that the cache, or another result of the
+same call, also holds goes out as a copy, and a leaf held by nothing else
+goes out as it is (an uncached cold checkout pays no copy).  A caller may
+write into any tree it was given.  Internal read-only callers (commit's
+base, repack's measure, ``diff``) take :meth:`Materializer.checkout_shared`,
+which copies nothing.
 
 The cache budget is the ``cache_budget_bytes`` knob on
 :class:`~repro_torch.store.version_store.VersionStore` (default 256 MiB; 0
@@ -283,6 +288,11 @@ class MaterializationCache:
                 self.current_bytes -= old_bytes
                 self.evictions += 1
 
+    def trees(self) -> List[FlatTree]:
+        """Every resident tree, stale or not (what the cache holds)."""
+        with self._lock:
+            return [ent[0] for ent in self._entries.values()]
+
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {
@@ -394,10 +404,41 @@ class Materializer:
         """Materialize a batch, decoding each shared chain prefix once.
 
         Returns one tree per requested vid, in request order, bit-identical
-        to ``[checkout(v) for v in vids]``.  Returned dicts are fresh (safe
-        to add/remove keys) but the tensors are shared with the cache and
-        with other checkouts: copy one before writing into it.
+        to ``[checkout(v) for v in vids]``.  Each tree is the caller's own,
+        to write into: a leaf that the cache or another result of this call
+        also holds (a vid requested twice, a leaf two versions share) is
+        copied; a leaf that only this result holds goes out as it is.
         """
+        trees, out = self._checkout(vids)
+        # a leaf's memory is named by its first byte: a leaf that another
+        # tree holds is that tree's tensor itself (delta passes unchanged
+        # leaves through by reference), never a part of one
+        held_trees = self.cache.trees()
+        # every tree this call decoded was offered to the cache, and another
+        # reader may have taken one from it before it was evicted again
+        if self.cache.budget_bytes > 0:
+            held_trees += [t for t in trees.values()
+                           if tree_nbytes(t) <= self.cache.budget_bytes]
+        held = {t.data_ptr() for tree in held_trees for t in tree.values() if t.numel()}
+        for tree in out:
+            for key, t in tree.items():
+                if not t.numel():
+                    continue
+                if t.data_ptr() in held:
+                    tree[key] = t.clone()
+                else:
+                    held.add(t.data_ptr())
+        return out
+
+    def checkout_shared(self, vids: Sequence[int]) -> List[FlatTree]:
+        """:meth:`checkout_many` without the copies, for read-only internal
+        callers: the tensors may be the cache's and other results'."""
+        return self._checkout(vids)[1]
+
+    def _checkout(
+        self, vids: Sequence[int]
+    ) -> Tuple[Dict[int, FlatTree], List[FlatTree]]:
+        """The plan's trees by vid, and a fresh dict per requested vid."""
         with _span("mat.checkout_many", vids=len(vids)) as msp:
             with _span("mat.plan") as psp:
                 plan = self.planner.plan(vids, cached=self._cached_vids())
@@ -414,6 +455,8 @@ class Materializer:
                     tree = self.cache.get(
                         vid, self._entry_fp(vid), count=False
                     )
+                    if tree is not None:
+                        trees[vid] = tree
                 if tree is None:
                     # the planner saw this vid cached but its entry was
                     # evicted or its chain tag went stale between plan and
@@ -428,7 +471,7 @@ class Materializer:
                         1 for v in plan.requested if v not in planned
                     ),
                 )
-            return out
+            return trees, out
 
     def prefetch(self, vids: Sequence[int]) -> int:
         """Warm the cache with ``vids`` (hottest first); returns trees cached.

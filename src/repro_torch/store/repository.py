@@ -232,7 +232,10 @@ class Repository:
     def diff(self, a: Ref, b: Ref) -> TreeDiff:
         """Leaf-level diff of the trees at two refs."""
         va, vb = self.resolve(a), self.resolve(b)
-        ta, tb = self.store.checkout_many([va, vb])
+        # read-only: the trees may be the cache's own, so nothing is copied
+        ta, tb = self.store._counted_checkout(
+            [va, vb], self.store.materializer.checkout_shared
+        )
         added = tuple(sorted(set(tb) - set(ta)))
         removed = tuple(sorted(set(ta) - set(tb)))
         changed, unchanged = [], 0

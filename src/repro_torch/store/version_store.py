@@ -118,7 +118,7 @@ class _PayloadProvider:
             else:
                 # one batched plan: the pair's shared chain prefix is decoded
                 # once even when the cache can't hold it (tiny/zero budgets)
-                src_t, dst_t = self._store.materializer.checkout_many(
+                src_t, dst_t = self._store.materializer.checkout_shared(
                     [src, dst]
                 )
                 self._memo[key] = encode_delta(
@@ -294,10 +294,15 @@ class VersionStore:
     def checkout_many(self, vids: Sequence[int]) -> List[FlatTree]:
         """Batch checkout: one plan, shared chain prefixes decoded once.
 
-        Bit-identical to ``[checkout(v) for v in vids]``.  Returned tensors
-        are shared with the cache; copy before writing into one.
+        Bit-identical to ``[checkout(v) for v in vids]``.  Each returned
+        tree is the caller's own to write into (see
+        :meth:`Materializer.checkout_many`).
         """
-        out = self.materializer.checkout_many(vids)
+        return self._counted_checkout(vids, self.materializer.checkout_many)
+
+    def _counted_checkout(self, vids: Sequence[int], fetch) -> List[FlatTree]:
+        """``fetch(vids)``, then the access counts of a served checkout."""
+        out = fetch(vids)
         # bump only after success: a KeyError/cycle abort must not inflate
         # the recorded workload
         with self._lock:
@@ -309,8 +314,9 @@ class VersionStore:
         return out
 
     def _checkout_flat(self, vid: int) -> FlatTree:
-        """Internal checkout: no access-count bump, same cache/planner path."""
-        return self.materializer.checkout(vid)
+        """Internal read-only checkout: no access-count bump, same
+        cache/planner path, tensors shared with the cache."""
+        return self.materializer.checkout_shared([vid])[0]
 
     def flush_access_counts(self) -> None:
         """Persist access counts accumulated since the last metadata write."""

@@ -65,6 +65,15 @@ class TestFullAudit:
                if f["severity"] != "note" and not f["baselined"]]
         assert report["new"] == 0 and rc == 0, new
 
+    def test_no_gating_finding_with_an_empty_baseline(self, audit_json):
+        # the committed baseline accepts nothing: every finding is a NOTE
+        baseline = json.loads((ROOT / cli.DEFAULT_BASELINE).read_text())
+        assert baseline["findings"] == {}
+        rc, report = audit_json
+        gating = [f for f in report["findings"] if f["severity"] != "note"]
+        assert rc == 0 and gating == []
+        assert not [f for f in report["findings"] if f["baselined"]]
+
     def test_every_target_ran(self, audit_json):
         _, report = audit_json
         assert report["checked"]["audit.trace"] == len(KA.audit_targets())

@@ -179,6 +179,28 @@ class TestCompactAndEncode:
         assert_same(blk, j_blk)
         assert int(n) == int(j_n) == len(rows)
 
+    @pytest.mark.parametrize(
+        "rows,capacity",
+        [([], 8), ([3, 7, 8, 30], 8), ([0, 1, 2], 8), (list(range(32)), 32),
+         (list(range(12)), 4)],
+    )
+    def test_compact_int32_indices_same_bits_as_int64(self, rows, capacity):
+        # _compact scatters and gathers with its int32 indices; the int64
+        # copies it took before give the same bits
+        nb = 32
+        mask = np.zeros((nb, 1), np.int32)
+        mask[rows] = 1
+        m, new = T(mask)[:, 0], T(rand_blocks(np.random.RandomState(len(rows)), nb))
+        order = torch.cumsum(m, 0, dtype=torch.int32) - 1
+        keep = (m == 1) & (order < capacity)
+        want = torch.full((capacity,), -1, dtype=torch.int32)
+        want[order[keep].long()] = torch.arange(nb, dtype=torch.int32)[keep]
+        want = torch.where(want >= 0, want, torch.argmin(m).to(torch.int32))
+        idx, blk, n = ops._compact(T(mask), new, capacity)
+        assert torch.equal(idx, want)
+        assert torch.equal(blk, new[want.long()])
+        assert int(n) == len(rows)
+
     @pytest.mark.parametrize("changed", [0, 1, 12, 32])
     def test_sparse_encode_matches_jax(self, changed):
         a, b, _ = _pair(changed=changed)

@@ -118,6 +118,54 @@ class TestSolversMatchJax:
         assert got == want
 
 
+    @pytest.mark.parametrize("idx", [1, 4, 7, 30])
+    def test_int32_indices_same_bits_as_int64(self, pairs, idx, monkeypatch):
+        # the backend indexes with the int32 tensors it uploads; the same
+        # functions fed int64 copies (as they indexed before) give the same bits
+        g, h = pairs[idx]
+        eb = h.arrays()
+        theta = jcore.shortest_path_tree(g).max_recreation() * MP_MULT
+        dev = torch.device("cpu")
+        got = (torch_backend.sssp(eb, device="cpu"),
+               torch_backend.mp_state(eb, theta, dev),
+               torch_backend.prim_state(eb, dev) if not g.directed else ())
+        in_rows, out_rows = torch_backend.padded_in_rows, torch_backend.padded_out_rows
+
+        def wide_in(ea, **kw):
+            r = in_rows(ea, **kw)
+            return torch_backend.PaddedRows(r.nvp, r.ids.astype(np.int64), r.w, r.w2)
+
+        def wide_out(ea):
+            rows, dst, delta, phi = out_rows(ea)
+            return rows, dst.astype(np.int64), delta, phi
+
+        monkeypatch.setattr(torch_backend, "padded_in_rows", wide_in)
+        monkeypatch.setattr(torch_backend, "padded_out_rows", wide_out)
+        want = (torch_backend.sssp(eb, device="cpu"),
+                torch_backend.mp_state(eb, theta, dev),
+                torch_backend.prim_state(eb, dev) if not g.directed else ())
+        for a, b in zip(got[0], want[0]):
+            np.testing.assert_array_equal(a, b)
+        for part_got, part_want in zip(got[1:], want[1:]):
+            for a, b in zip(part_got, part_want):
+                assert torch.equal(a, b)
+
+        rng = np.random.RandomState(idx)
+        nc, nv = 50, g.n + 1
+        scorer = torch_backend.LmgScorer(
+            rng.randint(0, nv, nc), rng.randint(1, nv, nc),
+            rng.uniform(1, 1e3, nc), rng.uniform(1, 1e3, nc), device="cpu")
+        state = (
+            rng.rand(nc) < 0.8, rng.uniform(1, 1e3, nv), rng.uniform(0, 1e4, nv),
+            rng.uniform(0, 5, nv), rng.permutation(nv), rng.randint(1, 4, nv),
+            float(rng.uniform(1e4, 2e4)), float(rng.uniform(2e4, 3e4)),
+        )
+        got_score = scorer.score(*state)
+        assert scorer._cu.dtype == scorer._cv.dtype == torch.int32
+        scorer._cu, scorer._cv = scorer._cu.long(), scorer._cv.long()
+        assert scorer.score(*state) == got_score
+
+
 # --------------------------------------------------------- corner cases
 def _star(core, n, directed):
     g = core.VersionGraph(n, directed=directed)
