@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent, encoder-decoder) and training (every family; the dots remat policy) paths, its kernel auditor, its CLIs and its example twins on one NVIDIA GPU.
+"""Drive the PyTorch port's store, service, solver, LM-serving (dense, MoE, MLA, recurrent, encoder-decoder; the expert-parallel MoE on a 1 x 1 NCCL mesh) and training (every family; the dots remat policy) paths, its kernel auditor, its CLIs, its example twins and its mesh runtime on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -36,8 +36,8 @@ use (into ``build/``).  Phases:
     busy and idle share).
 (e) Segment kernel checks.  The solvers' reductions (segment min / argmin
     over rows, the global min/argmin) at the main path's shapes — the
-    131,072 x 32 in-edge matrix of a 66,000-version graph, a 2**20-element
-    LMG candidate vector, a 131,072-element key — and in edge cases (ties,
+    16,384 x 32 in-edge matrix of a 16,000-version graph, a 16,384-element
+    LMG candidate vector and Prim/MP key — and in edge cases (ties,
     all-+inf rows, NaN, -inf, rows holding both signed zeros, widths 1, 8,
     19, 24, 32, 37, 40 and 200, a single row, contiguous views that are not
     16-byte aligned, lengths 2**20 + 3 and others that are not a multiple of
@@ -48,11 +48,11 @@ use (into ``build/``).  Phases:
     floor); ``torch.profiler`` must see one ``cudaLaunchKernel`` a
     ``min_argmin_1d`` call.  Then the Prim and Modified-Prim step
     loops (one launch a solve), bit for bit in every state array, on phase
-    (f)'s graphs at 2,000 and 66,000 versions and in edge cases (ties, NaN
+    (f)'s graphs at 2,000 and 16,000 versions and in edge cases (ties, NaN
     keys, unreachable versions, widths 40 and above 1,024, a single vertex,
-    2**21 rows of width 8 for 48 steps), timed at 66,000 beside the plain
+    2**21 rows of width 8 for 48 steps), timed at 16,000 beside the plain
     loop, the bytes bound and the latency floor (``segment_loop_floor``).
-(f) Solvers at n = 66,000 (``generate_flat``, the DC-like shape of the
+(f) Solvers at n = 16,000 (``generate_flat``, the DC-like shape of the
     solver-scale sweep; undirected for Prim): Problem 2 (SPT), Problem 1
     undirected (Prim), Problem 3 (LMG) at 1.05 x C_min, Problem 6 (MP) at
     1.5 x the SPT's max recreation, each through ``optimize`` with
@@ -99,7 +99,7 @@ use (into ``build/``).  Phases:
     step run under torch.profiler.
 
 (i) The dataset service.  A ``Repository`` on the card of 64 versions of
-    ~16 MiB (phase (b)'s leaves cut to 1/32; a branch every 4 commits; a
+    ~8 MiB (phase (b)'s leaves cut to 1/64; a branch every 4 commits; a
     cache of 8 versions) is served through ``repo.serve(readers=4,
     batch_window_s=0.002, fsck_interval_s=5, fsck_sample=4)`` under an
     enabled tracer: a closed-loop warm-up measures the throughput, then 300
@@ -177,15 +177,26 @@ use (into ``build/``).  Phases:
     decode step (idle share, top kernels, and the expert weights every step
     reads: C = 1 slot per expert runs all 256 experts of both MoE layers).
     MLA takes the chunked softmax, as the JAX package's does: no kernel of
-    the repo is on this path.
+    the repo is on this path.  The layer check runs the expert-parallel
+    form too (``moe_block_ep`` on phase (u)'s 1 x 1 NCCL mesh) against the
+    plain sum over the EP form's own routes (its router cast to bf16, as the
+    JAX module's), drop-free: every token within 2e-2, two all-to-alls and
+    one all-gather a call, a planted fault (each expert's tokens handed to
+    the next) above 2e-2, and the tokens whose top-k sets the bf16 and the
+    f32 router choose differently counted.
 (n) Phi-3.5-MoE serving (GQA 32 / 8 heads of 128, 16 experts, top 2, d
     4096, expert d_ff 6400, vocab 32,064), the depth cut from 32 to 16
     layers (21.1 B, 42.1 GB).  The same layer check; a ServeEngine of batch
     4 answers greedy requests of 16 tokens with prompts of 2048 tokens (the
     prefill takes the flash kernel, one launch a layer) and 1000 (the
     chunked softmax), drop-free, each held against teacher forcing as in
-    (m); then a timed prefill of 4 x 2048 and 16 decode steps at cf 1.25,
-    one decode step traced.  The flash launches of the phase are counted.
+    (m), the EP layer check too; then the 2048-token request again with
+    ``moe_impl="ep"`` on the mesh, drop-free: 16 flash launches, two
+    all-to-alls a MoE layer call, held against teacher forcing over the EP
+    form's own routes, its prefill and decode walls beside the dispatch's on
+    the same prompt; then a timed prefill of 4 x 2048 and 16 decode steps at
+    cf 1.25, one decode step traced.  The flash launches of the phase are
+    counted.
 (o) The recurrent families at their published widths and full depth, each
     alone on the card, weights drawn there from a seeded generator (the tree
     must number ``count_params``, plus for RWKV-6 the twelve D-vectors a
@@ -261,7 +272,10 @@ use (into ``build/``).  Phases:
     reaches them; x's, the router's and the shared expert's gradients within
     ``Q_GRAD_TOL`` of ``moe_block_plain``'s (run with the expert stacks
     frozen), every expert stack's gradient finite, exactly zero for the
-    experts no route reached and non-zero for the rest.  (q4)
+    experts no route reached and non-zero for the rest; then the same layer,
+    input and cotangent through ``moe_block_ep`` on the mesh (two
+    all-to-alls forward, two back), held the same way against the plain sum
+    over the EP form's own routes.  (q4)
     ``launch.train.train`` on reduced DeepSeek-V3 with a save every 4 steps,
     a preemption and a resume; every save restored cold must equal its host
     copy leaf for leaf (sha256; f32 routers, the MTP head), and
@@ -318,14 +332,23 @@ use (into ``build/``).  Phases:
     warm checkout, into one result of a batch and into one of two coalesced
     service results must leave every later tree equal to its sha256.
 
+(u) The mesh runtime on the card, before (m): ``make_host_mesh("cuda")``,
+    the 1 x 1 ``("data", "model")`` mesh over NCCL at world size 1 (the
+    backend and NCCL's version logged; nothing falls back to gloo), which
+    (m), (n) and (q) reuse; ``compressed_psum`` over "data" on a 64 MiB f32
+    tensor, bit-equal to ``quant_dequant``, both timed; a small train state
+    (reduced Phi-3.5-MoE's params and moments) committed and restored with
+    ``shardings=tree_spec(param_axes(...))`` onto the mesh, every DTensor's
+    local tensor bit-equal to the plain restore's leaf.
+
 Phases (e) and (h)'s kernel checks run right after (a), so that every
 kernel is checked before the main path starts.  The launch counters of the
 kernels are set to 0 before each main-path phase and read after it; a
 kernel its phase should use that launched no time fails the run, as does
 any mismatch.  Phases (b), (c), (f), (g), (i), (j), (l), (h)'s requests,
-(m), (n), (o), (p), (k), (q), (r), (s) and (t) are the main path ((j) runs after
-(d), on (b)'s ground truth; (m) to (s) run last, each alone on the card's
-memory); the launches of the kernel checks, which compare kernels with their
+(u), (m), (n), (o), (p), (k), (q), (r), (s) and (t) are the main path ((j) runs
+after (d), on (b)'s ground truth; (u) and (m) to (s) run last, each alone on
+the card's memory); the launches of the kernel checks, which compare kernels with their
 plain versions, are not counted.  ``--only LETTERS`` runs a subset (a development aid; it prints no
 result line).  The last lines are the card's name and power limit
 (``nvidia-smi``), one JSON object with each kernel's numbers, and the
@@ -336,6 +359,7 @@ of that object also carry ``launch_floor_ms``.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import hashlib
 import json
 import os
@@ -350,6 +374,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SEED = 1505_05211
+STACKS_AFTER_S = 1140  # every thread's stack to standard error, if still running
 BLOCK = 4096
 
 # name -> (dtype, shape): ~509 MiB per version at the dataset's own widths
@@ -368,7 +393,7 @@ FORK_AT = 12           # branch "dev" forks off main's 12th commit
 RESHAPE_AT = 8         # main commit that reshapes labels/ids (full rewrite)
 TOMBSTONE_AT = 18      # main commit that deletes mask/valid
 CHANGED_SHARE = 0.005  # of a leaf's blocks, per edit
-PHASES = "abcdefghijklmnopqrst"
+PHASES = "abcdefghijklmnopqrstu"
 
 
 def log(msg: str) -> None:
@@ -454,10 +479,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # hold the device (~0.1 ms per iteration at ~2 GHz) while the host
+    # hold the device (~0.5 ms per iteration at ~2 GHz) while the host
     # enqueues the launches, so that the events time the device's work and
-    # not the host's launch overhead, which hides small kernels
-    torch.cuda._sleep(iters * 200_000)
+    # not the host's launch overhead, which hides small kernels; a shared
+    # host stalls for milliseconds at times (0.1 ms per iteration let a
+    # 3 us kernel read 0.34 ms once)
+    torch.cuda._sleep(iters * 1_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -937,10 +964,14 @@ def drive_block_ops(truth: dict, counters: Counters, device: str = "cuda") -> No
 
 
 # ------------------------------------------------- (e) segment kernel checks
-# versions of the phase (f) graphs: cut from 100,000 to keep the whole run
-# near half its time limit; above 65,536 the layouts keep 131,072 rows
-SOLVER_N = 66_000
-LMG_CANDIDATES = 1 << 20  # ~700,000 candidate edges, bucketed
+# versions of the phase (f) graphs: cut from 100,000 (then from 66,000) to
+# keep the whole run near half its time limit, since the plain step loops and
+# the CPU solvers the card is held against grow with n and with n x rows; the
+# layouts keep 16,384 rows (SOLVER_ROWS; phase (e) checks it)
+SOLVER_N = 16_000
+SOLVER_ROWS = (16_384, 32)  # the in-edge and out-edge layouts' (rows, width)
+LMG_MOVES = 1 << 14  # LMG's candidate moves at n = 16,000 (15,945), bucketed
+LMG_CANDIDATES = 1 << 20  # the 1-D edge cases' length
 
 
 def same_bits(got, want, what: str) -> float:
@@ -1023,7 +1054,7 @@ def segment_checks(dev) -> list:
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    nvp, width = 131_072, 32
+    nvp, width = SOLVER_ROWS
     results = []
     floor_ms = cuda_ms(lambda: kernels.launch("segment_launch_floor", dev))
 
@@ -1093,18 +1124,25 @@ def segment_checks(dev) -> list:
         same_bits(gi, wi, f"min_argmin_1d index ({what})")
         return same_bits(gv, wv, f"min_argmin_1d value ({what})")
 
-    cand = torch.ones(LMG_CANDIDATES, device=dev)
-    scored = torch.randint(0, LMG_CANDIDATES, (4096,), device=dev, generator=g)
-    cand[scored] = -torch.rand(4096, device=dev, generator=g) * 10
-    cand[scored[:3]] = cand.min() - 1              # a three-way tie at the min
+    def scored_ones(n):
+        """n ones, 4,096 of them scored below zero, three tied at the min."""
+        v = torch.ones(n, device=dev)
+        scored = torch.randint(0, n, (4096,), device=dev, generator=g)
+        v[scored] = -torch.rand(4096, device=dev, generator=g) * 10
+        v[scored[:3]] = v.min() - 1
+        return v
+
+    cand = scored_ones(LMG_MOVES)                  # the main path's LMG candidates
+    wide = scored_ones(LMG_CANDIDATES)             # the edge cases' 2**20 (+ 3)
     key = torch.rand(nvp, device=dev, generator=g) * 1e6
     key[torch.rand(nvp, device=dev, generator=g) < 0.6] = torch.inf
-    err_1d = max(both(cand, "LMG candidates, n = 2**20"), both(key, "Prim/MP key"))
+    err_1d = max(both(cand, f"LMG candidates, n = {LMG_MOVES}"), both(key, "Prim/MP key"))
+    both(wide, "n = 2**20")
     nan_v = key.clone()
-    nan_v[[77_777, 99_999]] = torch.nan
-    plus3 = torch.cat([cand, torch.ones(3, device=dev)])
+    nan_v[[7_777, 9_999]] = torch.nan
+    plus3 = torch.cat([wide, torch.ones(3, device=dev)])
     tail_min, head_min = plus3.clone(), plus3.clone()
-    tail_min[-2:] = cand.min() - 2                 # the least two in the scalar tail
+    tail_min[-2:] = wide.min() - 2                 # the least two in the scalar tail
     zeros = torch.ones(1 << 16, device=dev)
     zeros[[40_001, 50_000]] = -0.0
     zeros[[40_000, 60_000]] = 0.0                  # +0 first: the value is +0.0
@@ -1126,11 +1164,11 @@ def segment_checks(dev) -> list:
     }
     for k in (1, 2, 3):                            # contiguous views off 16-byte alignment
         cases[f"LMG candidates from element {k}"] = cand.view(-1)[k:]
-        head_min[k] = cand.min() - 3               # the least in the scalar head
+        head_min[k] = wide.min() - 3               # the least in the scalar head
         cases[f"n = 2**20 + 3 from element {k}, min in the head"] = head_min.view(-1)[k:]
     for label, v in cases.items():
         both(v, label)
-    check(int(min_argmin_1d(nan_v)[1]) == 77_777, "min_argmin_1d: first NaN must win")
+    check(int(min_argmin_1d(nan_v)[1]) == 7_777, "min_argmin_1d: first NaN must win")
     check(int(min_argmin_1d(torch.full((nvp,), torch.inf, device=dev))[1]) == 0,
           "min_argmin_1d: all +inf must give index 0")
     zv, zi = min_argmin_1d(zeros)
@@ -1158,7 +1196,7 @@ def segment_checks(dev) -> list:
         for gv, gi in outs[k]:
             same_bits(gi, wi, f"min_argmin_1d index (stream {k})")
             same_bits(gv, wv, f"min_argmin_1d value (stream {k})")
-    log(f"phase e: min_argmin_1d: {len(cases) + 2} cases and 2 x 50 calls on two "
+    log(f"phase e: min_argmin_1d: {len(cases) + 3} cases and 2 x 50 calls on two "
         f"streams at once bit-identical to the plain version")
 
     # one kernel launch a call, nothing else (the workspace exists already)
@@ -1186,14 +1224,14 @@ def segment_checks(dev) -> list:
         "ms": lmg_ms,
         "call_ms": host_call_ms(lambda: min_argmin_1d(cand)),
         "plain_ms": cuda_ms(lambda: ref.min_argmin_1d_ref(cand)),
-        "bound_ms": bound_ms(LMG_CANDIDATES * 4 + 8), "bound_by": "bytes",
+        "bound_ms": bound_ms(LMG_MOVES * 4 + 8), "bound_by": "bytes",
         "library_ms": cuda_ms(lambda: torch.min(cand, 0)),
-        "shapes": f"LMG candidates ({LMG_CANDIDATES},); the Prim/MP key ({nvp},): "
+        "shapes": f"LMG candidates ({LMG_MOVES},); the Prim/MP key ({nvp},): "
                   f"[{key_ms:.6f} ms, bound {bound_ms(nvp * 4 + 8):.9f} ms, torch.min "
                   f"{cuda_ms(lambda: torch.min(key, 0)):.6f} ms]",
     })
 
-    del cand, key, cases, inputs, outs, plus3, tail_min, head_min, nan_v, zeros, neg_zeros
+    del cand, wide, key, cases, inputs, outs, plus3, tail_min, head_min, nan_v, zeros, neg_zeros
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for r in results:
@@ -1248,7 +1286,7 @@ def loop_checks(dev) -> list:
     (Prim's best, bp, in_tree; MP's l, d, p, in_tree; the first nvp entries,
     as the JAX package returns them: the plain version's masked scatters
     write the trash entry nvp + 1, the kernels skip it), on phase (f)'s graphs
-    at n = 2,000 and 66,000 and in edge cases; each timed at n = 66,000
+    at n = 2,000 and 16,000 and in edge cases; each timed at n = 16,000
     beside its plain version, its bytes bound and the latency floor (the
     same steps of one block barrier and one dependent L2 load each,
     ``segment_loop_floor``)."""
@@ -1276,6 +1314,7 @@ def loop_checks(dev) -> list:
     def hold(label, ea, theta, steps=None):
         """Both loops on one instance: the kernel against the plain version."""
         out = {}
+        t0 = time.perf_counter()
         steps = ea.n if steps is None else steps
         for name, kern, plain, init, names, shape in (prim_run(ea, steps),
                                                       mp_run(ea, theta, steps)):
@@ -1287,7 +1326,8 @@ def loop_checks(dev) -> list:
             out[name] = int(got[-1].sum()) - 1  # vertices the loop put in the tree
         log(f"phase e: loops ({label}): nvp {shape[0]}, width {shape[1]}, "
             f"{steps} steps; vertices put in the tree "
-            f"{json.dumps(out)}; bit-identical to the plain versions")
+            f"{json.dumps(out)}; bit-identical to the plain versions, in "
+            f"{time.perf_counter() - t0:.3f} s with the layouts")
 
     def theta_of(g):
         return optimize(g, OptimizeSpec.problem(2, backend="numpy")).solution.max_recreation() * 1.5
@@ -1312,7 +1352,7 @@ def loop_checks(dev) -> list:
     hold("nvp = 2**21, width 8", big, theta, steps=48)
     del big
 
-    # the main path's shape: phase (f)'s graphs at n = 66,000, timed
+    # the main path's shape: phase (f)'s graphs at n = 16,000, timed
     gu, gd = solver_graph(SOLVER_N, False), solver_graph(SOLVER_N, True)
     cycle = torch.randperm(1 << 17, device=dev, dtype=torch.int64)
     nxt = torch.empty(1 << 17, dtype=torch.int32, device=dev)
@@ -1337,6 +1377,8 @@ def loop_checks(dev) -> list:
                   for nm, a, b in zip(names, work, want))
         steps = int(work[-1].sum()) - 1  # steps that selected a vertex
         nvp, width = shape
+        check(shape == SOLVER_ROWS, f"phase e: {name}'s layout at n = {SOLVER_N} is {shape}, "
+              f"not SOLVER_ROWS {SOLVER_ROWS}")
         row = width * (4 + 4 * (len(names) - 2))   # ids and the costs a step reads
         state = (nvp + 2) * sum(t.element_size() for t in init)
         nbytes = steps * row + 2 * state           # the state read and written once
@@ -1614,9 +1656,9 @@ def drive_repack(root: Path, counters: "Counters", device: str = "cuda") -> dict
 
 
 # ------------------------------------------------ (i) the dataset service
-# phase (b)'s six leaves at their dtypes, each cut to 1/32 of its rows:
-# ~16 MiB a version (see drive_service for why not larger)
-SERVICE_LEAVES = {name: (dtype, (shape[0] // 32,) + shape[1:])
+# phase (b)'s six leaves at their dtypes, each cut to 1/64 of its rows:
+# ~8 MiB a version (see drive_service for why not larger)
+SERVICE_LEAVES = {name: (dtype, (shape[0] // 64,) + shape[1:])
                   for name, (dtype, shape) in LEAVES.items()}
 SERVICE_VERSIONS = 64
 SERVICE_BRANCH_EVERY = 4     # every 4th commit forks a branch
@@ -1652,7 +1694,7 @@ def zipf_reads(vids: list, n: int, rng: np.random.RandomState) -> list:
 def drive_service(root: Path, counters: Counters, device: str = "cuda") -> dict:
     """Phase (i): the asynchronous dataset service over a store on the card.
 
-    A ``Repository`` of 64 versions (phase (b)'s leaves cut to 1/32, a
+    A ``Repository`` of 64 versions (phase (b)'s leaves cut to 1/64, a
     branch every 4 commits, a cache of 8 versions) is served through
     ``repo.serve(readers=4, batch_window_s=0.002, fsck_interval_s=5,
     fsck_sample=4)`` under an enabled tracer.  A closed-loop warm-up (8
@@ -1665,7 +1707,7 @@ def drive_service(root: Path, counters: Counters, device: str = "cuda") -> dict:
     the recorded bound theta holds for them.  A final ``svc.fsck()`` must
     report no gating finding, every served tree must equal host ground
     truth (a sha256 per leaf), and every committed version is checked out
-    at the end.  The cut to 1/32 (not 1/8): ``build_cost_graph``, inside the
+    at the end.  The cut to 1/64 (not 1/8): ``build_cost_graph``, inside the
     repack, zlib-compresses every version's full payload on the host, which
     runs at ~20 MB/s on the card's machine (phase d).
     """
@@ -2290,6 +2332,7 @@ PHI_LAYERS = 16          # of 32
 PHI_BATCH = 4
 PHI_PROMPTS = (2048, 1000)  # the flash kernel, the chunked softmax
 PHI_NEW = 16
+PHI_EP_PROMPT = 2048     # the request (n) runs again with moe_impl="ep"
 MOE_TOL = 2e-2           # the MoE layer against its plain sum, ||d|| / ||plain|| a token
 MOE_REL_TOL = 0.1        # a decode step's logits against teacher forcing, ||d - t|| / ||t||
 
@@ -2313,6 +2356,92 @@ class RouteLog:
 
     def __exit__(self, *exc):
         self._moe.route = self._route
+
+
+@contextlib.contextmanager
+def ep_router():
+    """While active, ``moe.router_logits`` is the EP form's (the router cast
+    to ``x``'s dtype, a bf16 product), so that a plain sum or a teacher
+    routes and weighs as ``moe_block_ep`` does."""
+    from repro_torch.models import moe, moe_ep
+
+    saved = moe.router_logits
+    moe.router_logits = moe_ep.router_logits
+    try:
+        yield
+    finally:
+        moe.router_logits = saved
+
+
+def moe_layer_check_ep(phase: str, cfg, params, tokens) -> dict:
+    """``moe_block_ep`` on the card's 1 x 1 NCCL mesh against
+    ``moe_block_plain`` over the EP form's own routes (:func:`ep_router`),
+    on the first MoE layer's real input, drop-free: every token within
+    MOE_TOL of the plain sum's norm, two all-to-alls and one all-gather a
+    call; a planted fault (the first all-to-all of the call hands each
+    expert's tokens to the next expert) must land above MOE_TOL.  Logs how
+    many tokens' top-k sets the EP form's bf16 router and the dispatch's f32
+    router choose differently, and the EP call's wall (one call, after one
+    untimed)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed.sharding import logical_sharding
+    from repro_torch.models import moe, moe_ep
+
+    free = drop_free(cfg)
+    ep_cfg = dataclasses.replace(free, moe_impl="ep")
+    p, x = moe_layer_input(free, params, tokens)
+    mesh = host_mesh()
+    with torch.no_grad():
+        f32_e = moe.route(free, moe.router_logits(p, x))[1].sort(dim=-1).values
+        bf16_e = moe.route(free, moe_ep.router_logits(p, x))[1].sort(dim=-1).values
+        differ = int((f32_e != bf16_e).any(-1).sum())
+        with logical_sharding(mesh):
+            moe_ep.moe_block_ep(ep_cfg, p, x)  # warm-up: NCCL makes its communicator
+            a2a, ag = moe_ep.all_to_all.calls, moe_ep.all_gather.calls
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = moe_ep.moe_block_ep(ep_cfg, p, x)
+            torch.cuda.synchronize()
+            ep_s = time.perf_counter() - t0
+            a2a, ag = moe_ep.all_to_all.calls - a2a, moe_ep.all_gather.calls - ag
+            good, calls = moe_ep._exchange, []
+
+            def shifted(t, group):
+                calls.append(1)
+                return good(t.roll(1, dims=1) if len(calls) == 1 else t, group)
+
+            moe_ep._exchange = shifted
+            try:
+                fault = moe_ep.moe_block_ep(ep_cfg, p, x)
+            finally:
+                moe_ep._exchange = good
+        with ep_router():
+            want = moe.moe_block_plain(free, p, x)
+        norm = want.float().norm(dim=-1)
+        rel = (got.float() - want.float()).norm(dim=-1) / norm
+        rel_fault = (fault.float() - want.float()).norm(dim=-1) / norm
+    S, E = x.shape[1], cfg.n_experts
+    c_loc = max(1, -(-x.shape[0] * S * cfg.top_k * ep_cfg.capacity_factor // E))
+    log(f"phase {phase}: moe_block_ep on the 1 x 1 NCCL mesh against the plain sum over its "
+        f"own routes, on the first MoE layer's input {tuple(x.shape)}, drop-free (c_loc "
+        f"{int(c_loc)}, two all-to-alls of ({E}, {int(c_loc)}, {cfg.d_model}) bf16 each way): a "
+        f"token's ||d|| / ||plain|| max {float(rel.max()):.6f}; the planted fault (tokens "
+        f"handed to the next expert) min {float(rel_fault.min()):.6f} max "
+        f"{float(rel_fault.max()):.6f}; {a2a} all-to-alls and {ag} all-gather a call; "
+        f"moe_block_ep {ep_s:.6f} s (one call); the bf16 router's top-{cfg.top_k} set differs "
+        f"from the dispatch's f32 router's at {differ} of {f32_e.shape[0] * f32_e.shape[1]} "
+        "tokens")
+    check(a2a == 2 and ag == 1, f"phase {phase}: moe_block_ep issued {a2a} all-to-alls and "
+          f"{ag} all-gathers, not 2 and 1")
+    check(float(rel.max()) <= MOE_TOL, f"phase {phase}: moe_block_ep differs from the plain "
+          f"sum by {float(rel.max())} of a token's norm (tolerance {MOE_TOL})")
+    check(float(rel_fault.max()) > MOE_TOL, f"phase {phase}: the planted fault lands under "
+          f"{MOE_TOL}: {float(rel_fault.max())}")
+    return {"max_rel": float(rel.max()), "fault_max_rel": float(rel_fault.max()),
+            "ep_s": ep_s, "router_sets_differ": differ}
 
 
 def moe_model(name: str, n_layers: int, phase: str):
@@ -2719,9 +2848,10 @@ def drive_deepseek(counters: "Counters") -> dict:
     S, new, batch = DS_PROMPT, DS_NEW, DS_BATCH
     cfg, params = moe_model(DS_ARCH, DS_LAYERS, "m")
     rng = np.random.default_rng(SEED)
-    out = {"layer": moe_layer_check(
-        "m", cfg, params,
-        torch.as_tensor(rng.integers(0, cfg.vocab, (1, DS_CHECK_TOKENS)), device="cuda"))}
+    check_tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, DS_CHECK_TOKENS)),
+                                   device="cuda")
+    out = {"layer": moe_layer_check("m", cfg, params, check_tokens),
+           "layer_ep": moe_layer_check_ep("m", cfg, params, check_tokens)}
 
     prompt = rng.integers(0, cfg.vocab, (batch, S)).astype(np.int32)
     fails, runs = [], {}
@@ -2783,18 +2913,19 @@ def drive_phi(counters: "Counters") -> dict:
     new, batch = PHI_NEW, PHI_BATCH
     cfg, params = moe_model(PHI_ARCH, PHI_LAYERS, "n")
     rng = np.random.default_rng(SEED)
-    out = {"layer": moe_layer_check(
-        "n", cfg, params,
-        torch.as_tensor(rng.integers(0, cfg.vocab, (1, DS_CHECK_TOKENS)), device="cuda"))}
+    check_tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, DS_CHECK_TOKENS)),
+                                   device="cuda")
+    out = {"layer": moe_layer_check("n", cfg, params, check_tokens),
+           "layer_ep": moe_layer_check_ep("n", cfg, params, check_tokens)}
     free = drop_free(cfg)
     rec = LogitLog(get_model(free))
     engine = ServeEngine(rec.bundle, params, max_len=max(PHI_PROMPTS) + new, batch=batch,
                          device="cuda")
     engine.generate({"tokens": rng.integers(0, cfg.vocab, (batch, PHI_PROMPTS[0]))},
                     max_new_tokens=2)  # warm-up
-    fails = []
+    fails, prompts = [], {}
     for S in PHI_PROMPTS:
-        prompt = rng.integers(0, cfg.vocab, (batch, S)).astype(np.int32)
+        prompt = prompts[S] = rng.integers(0, cfg.vocab, (batch, S)).astype(np.int32)
         rec.logits.clear()
         counters.zero()
         with RouteLog() as rl:
@@ -2814,6 +2945,8 @@ def drive_phi(counters: "Counters") -> dict:
         out[S] = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
                   "flash_launches": counts["flash_attention"], "teacher": summary}
     del engine
+    out["ep"] = phi_ep_request(counters, cfg, params, prompts[PHI_EP_PROMPT], out[PHI_EP_PROMPT])
+    fails += out["ep"].pop("fails")
     check(not fails, "phase n: " + "; ".join(fails))
     counters.zero()
     out["timed"] = timed_moe_run("n", cfg, get_model(cfg), params, batch, PHI_PROMPTS[0], new,
@@ -2822,6 +2955,171 @@ def drive_phi(counters: "Counters") -> dict:
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def phi_ep_request(counters: "Counters", cfg, params, prompt, dispatch: dict) -> dict:
+    """Phase (n)'s request of PHI_BATCH x PHI_EP_PROMPT tokens again, with
+    ``moe_impl="ep"`` on the 1 x 1 NCCL mesh, drop-free, through a
+    ServeEngine: ``flash_attention`` must launch once a layer, each MoE call
+    must issue two all-to-alls, and the request is held against teacher
+    forcing over the EP form's own routes (:func:`moe_teacher_force` under
+    :func:`ep_router`).  Its prefill and decode walls are logged beside the
+    dispatch's on the same prompt (``dispatch``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed.sharding import logical_sharding
+    from repro_torch.models import get_model, moe_ep
+    from repro_torch.serving import ServeEngine
+
+    new, batch, S = PHI_NEW, PHI_BATCH, prompt.shape[1]
+    free = drop_free(cfg)
+    rec = LogitLog(get_model(dataclasses.replace(free, moe_impl="ep")))
+    engine = ServeEngine(rec.bundle, params, max_len=S + new, batch=batch, device="cuda")
+    with logical_sharding(host_mesh()):
+        engine.generate({"tokens": prompt}, max_new_tokens=2)  # warm-up
+        rec.logits.clear()
+        counters.zero()
+        a2a = moe_ep.all_to_all.calls
+        with RouteLog() as rl:
+            res = engine.generate({"tokens": prompt}, max_new_tokens=new)
+        a2a = moe_ep.all_to_all.calls - a2a
+        counts = counters.read(f"phase n (EP, prompt {S})", ("flash_attention",))
+    del engine
+    calls = len(rec.logits)
+    log(f"phase n: EP (moe_impl='ep', 1 x 1 NCCL mesh): prompt {S}: {batch} x {S} tokens, "
+        f"{new} new, drop-free: prefill {res.prefill_s:.6f} s (the dispatch's "
+        f"{dispatch['prefill_s']:.6f} s on the same prompt), {res.steps - 1} decode steps in "
+        f"{res.decode_s:.6f} s ({res.decode_s / (res.steps - 1) * 1e3:.3f} ms a step; the "
+        f"dispatch's {dispatch['decode_s']:.6f} s), flash_attention launches "
+        f"{counts['flash_attention']}, all-to-alls {a2a} over {calls} model calls")
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"phase n: the EP request launched flash_attention {counts['flash_attention']} "
+          f"times, not {cfg.n_layers}")
+    check(a2a == 2 * cfg.n_layers * calls, f"phase n: the EP request issued {a2a} all-to-alls, "
+          f"not 2 a MoE layer call ({2 * cfg.n_layers * calls})")
+    with ep_router():
+        fails, summary = moe_teacher_force("n (EP)", free, params, prompt, res.tokens,
+                                           rec.logits, rl.calls)
+    torch.cuda.empty_cache()
+    return {"prefill_s": res.prefill_s, "decode_s": res.decode_s, "all_to_all": a2a,
+            "flash_launches": counts["flash_attention"], "teacher": summary, "fails": fails}
+
+
+# ------------------------------------------------------------ (u) the mesh
+U_PSUM_BYTES = 64 << 20   # compressed_psum's f32 input
+_HOST_MESH: list = []
+
+
+def host_mesh(device: str = "cuda"):
+    """The card's 1 x 1 ``("data", "model")`` mesh over NCCL (world size 1):
+    phase (u) builds it, and (m), (n) and (q) reuse it or, run alone, build
+    it themselves."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if not _HOST_MESH:
+        _HOST_MESH.append(make_host_mesh(device))
+    return _HOST_MESH[0]
+
+
+def leaf_bytes(t):
+    import torch
+
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+def drive_mesh(root: Path, counters: Counters, device: str = "cuda") -> dict:
+    """Phase (u): the 1 x 1 NCCL mesh (its backend and NCCL's version);
+    ``compressed_psum`` over "data" on a 64 MiB f32 tensor, bit-equal to
+    ``quant_dequant`` (the sum of one rank), both timed; a small train state
+    (reduced Phi-3.5-MoE's params under ``moe_impl="ep"`` and its AdamW
+    moments) committed and restored plain and with ``shardings=tree_spec(...)``
+    of its ``param_axes`` onto the mesh, every DTensor's local tensor equal
+    to the plain restore's leaf bit for bit."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import VersionedCheckpointManager
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.compression import compressed_psum, quant_dequant
+    from repro_torch.distributed.sharding import P, NamedSharding, logical_sharding, tree_spec
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.tree import tree_paths
+
+    t0 = time.perf_counter()
+    mesh = host_mesh(device)
+    mesh_s = time.perf_counter() - t0
+    backend, want = dist.get_backend(), "nccl" if device == "cuda" else "gloo"
+    nccl = torch.cuda.nccl.version() if device == "cuda" else "none"
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
+    log(f"phase u: mesh {mesh} in {mesh_s:.3f} s; backend {backend}, world size "
+        f"{dist.get_world_size()}, NCCL {nccl}")
+    check(backend == want and dist.get_world_size() == 1 and mesh.device_type == device,
+          f"phase u: the mesh runs {backend} on {mesh.device_type} at world size "
+          f"{dist.get_world_size()}, not {want} on {device} at 1")
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    x = torch.randn(U_PSUM_BYTES // 4, generator=gen, device=device)
+    with logical_sharding(mesh):
+        got = compressed_psum(x, "data")
+        want = quant_dequant(x)
+        check(torch.equal(leaf_bytes(got), leaf_bytes(want)),
+              "phase u: compressed_psum over 'data' differs from quant_dequant")
+        psum_ms = cuda_ms(lambda: compressed_psum(x, "data"), iters=10)
+    qd_ms = cuda_ms(lambda: quant_dequant(x), iters=10)
+    # compressed_psum's least work: read x once, write the result once
+    log(f"phase u: compressed_psum over 'data' of {U_PSUM_BYTES >> 20} MiB f32: bit-equal to "
+        f"quant_dequant; {psum_ms:.6f} ms a call (CUDA events, 10 after 3), quant_dequant "
+        f"{qd_ms:.6f} ms, bound {bound_ms(2 * U_PSUM_BYTES):.6f} ms (bytes: one read, one "
+        "write, at 3.35 TB/s)")
+    del x, got, want
+
+    cfg = dataclasses.replace(ARCHS[PHI_ARCH].reduced(), moe_impl="ep")
+    bundle = get_model(cfg)
+    params = bundle.init(torch.Generator(device=device).manual_seed(SEED), device=device)
+    state = {"params": params, "opt": init_opt_state(params)}
+    moments = tf.param_shapes(cfg, torch.float32)
+    template = {"params": tf.param_shapes(cfg),
+                "opt": {"mu": moments, "nu": moments, "step": ((), torch.int32)}}
+    axes = bundle.param_axes(template["params"])
+    shardings = {"params": tree_spec(axes, template["params"], mesh=mesh),
+                 "opt": {"mu": tree_spec(axes, moments, mesh=mesh),
+                         "nu": tree_spec(axes, moments, mesh=mesh),
+                         "step": NamedSharding(mesh, P())}}
+    counters.zero()
+    mgr = VersionedCheckpointManager(root / "u_ckpt", device=device)
+    try:
+        mgr.save(0, state, blocking=True)
+        t0 = time.perf_counter()
+        plain = mgr.restore(template)
+        sync(device)
+        plain_s = time.perf_counter() - t0
+        sharded_s = []
+        for _ in range(2):  # the first pays DTensor's one-time setup
+            t0 = time.perf_counter()
+            sharded = mgr.restore(template, shardings=shardings)
+            sync(device)
+            sharded_s.append(time.perf_counter() - t0)
+    finally:
+        mgr.close()
+    counters.read("phase u (commit)", ())
+    leaves = list(zip(tree_paths(plain), tree_paths(sharded)))
+    bad = [k for (k, a), (_, b) in leaves
+           if not (b.placements and torch.equal(leaf_bytes(b.to_local()), leaf_bytes(a)))]
+    n_bytes = sum(a.numel() * a.element_size() for (_, a), _ in leaves)
+    log(f"phase u: a train state of {len(leaves)} leaves ({n_bytes / 2**20:.3f} MiB: reduced "
+        f"{cfg.name}'s params and moments) committed and restored on the card: plain "
+        f"{plain_s:.6f} s, with shardings onto the mesh {sharded_s[0]:.6f} s (the process's "
+        f"first DTensors), again {sharded_s[1]:.6f} s; every DTensor's "
+        f"local tensor bit-equal to the plain leaf: {not bad}")
+    check(not bad, f"phase u: sharded restores differ from the plain: {bad[:4]}")
+    return {"psum_ms": psum_ms, "quant_dequant_ms": qd_ms, "restore_s": plain_s,
+            "sharded_restore_s": sharded_s}
 
 
 # ---------------------------------------------------- (o) recurrent families
@@ -4170,8 +4468,69 @@ def deepseek_moe_layer(counters: Counters) -> dict:
         f"||d|| / ||plain|| " + ", ".join(f"{k} {v:.6e}" for k, v in ratios.items())
         + f" (limit {Q_GRAD_TOL})")
     check(max(ratios.values()) <= Q_GRAD_TOL, f"phase q3: gradients off the plain's: {ratios}")
-    del p, x, cot, got, want
+    del got, want
     torch.cuda.empty_cache()
+    ep = deepseek_moe_layer_ep(cfg, p, x, cot)
+    del p, x, cot
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "peak_gib": peak, "ratios": ratios, "ep": ep}
+
+
+def deepseek_moe_layer_ep(cfg, p, x, cot) -> dict:
+    """(q3) again through ``moe_block_ep`` on the 1 x 1 NCCL mesh: the same
+    layer, input and cotangent through the EP form's forward and backward.
+    x's, the router's and the shared expert's gradients within
+    ``Q_GRAD_TOL`` of ``moe_block_plain``'s over the EP form's own routes
+    (:func:`ep_router`; the expert stacks frozen there); every expert stack's
+    gradient finite, exactly zero for the experts no EP route reached (the
+    ``Q_UNREACHED`` zeroed among them) and non-zero for the rest."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed.sharding import logical_sharding
+    from repro_torch.models import moe, moe_ep
+
+    ep_cfg = dataclasses.replace(cfg, moe_impl="ep")
+    with torch.no_grad():
+        top_e = moe.route(cfg, moe_ep.router_logits(p, x))[1]
+    reached = torch.zeros(cfg.n_experts, dtype=torch.bool, device=x.device)
+    reached[top_e.reshape(-1)] = True
+    check(not bool(reached[-Q_UNREACHED:].any()),
+          "phase q3 (EP): a zeroed router column was chosen")
+    experts = ["w_gate", "w_up", "w_down"]
+    small = ["x", "router", "shared_w_gate", "shared_w_up", "shared_w_down"]
+    torch.cuda.reset_peak_memory_stats()
+    a2a = moe_ep.all_to_all.calls
+    with logical_sharding(host_mesh()):
+        start = cuda_event()
+        got = layer_grads(ep_cfg, p, x, cot, small + experts, block=moe_ep.moe_block_ep)
+        end = cuda_event()
+    end.synchronize()
+    a2a = moe_ep.all_to_all.calls - a2a
+    wall = start.elapsed_time(end) / 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for n in experts:
+        g = got.pop(n)
+        check(bool(torch.isfinite(g).all()), f"phase q3 (EP): {n}'s gradient is not finite")
+        nonzero = g.flatten(1).abs().amax(1) > 0
+        del g
+        check(torch.equal(nonzero, reached), f"phase q3 (EP): {n}: the experts with a non-zero "
+              f"gradient ({int(nonzero.sum())}) are not the {int(reached.sum())} reached")
+    torch.cuda.empty_cache()
+    with ep_router():
+        want = layer_grads(cfg, p, x, cot, small, block=moe.moe_block_plain)
+    ratios = grad_ratios(got, want)
+    log(f"phase q3 (EP): moe_block_ep on the 1 x 1 NCCL mesh, the same layer, input and "
+        f"cotangent: forward and backward {wall:.6f} s (CUDA events, one call, the first), "
+        f"{a2a} all-to-alls (forward and backward), peak device memory {peak:.3f} GiB; "
+        f"{int(reached.sum())} of {cfg.n_experts} experts reached by the EP routes, each "
+        f"stack's gradient zero exactly where none reached; ||d|| / ||plain over EP's routes|| "
+        + ", ".join(f"{k} {v:.6e}" for k, v in ratios.items()) + f" (limit {Q_GRAD_TOL})")
+    check(a2a == 4, f"phase q3 (EP): {a2a} all-to-alls, not 2 forward and 2 backward")
+    check(max(ratios.values()) <= Q_GRAD_TOL,
+          f"phase q3 (EP): gradients off the plain's: {ratios}")
+    del got, want
     return {"wall_s": wall, "peak_gib": peak, "ratios": ratios}
 
 
@@ -4784,18 +5143,29 @@ sys.exit(cli.main(sys.argv[1:]))
 """
 
 
-def cli_run(label: str, args: list, want_rc: int) -> tuple:
-    """Run ``python args`` from the checkout's root as a subprocess; its exit
-    status must be ``want_rc``.  Returns (stdout, wall)."""
+def cli_start(args: list) -> tuple:
+    """Start ``python args`` from the checkout's root as a subprocess; returns
+    (process, start time) for :func:`cli_wait`."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
+    return (subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+            time.perf_counter())
+
+
+def cli_wait(label: str, started: tuple, want_rc: int) -> tuple:
+    """Wait for a :func:`cli_start` subprocess (killed after 600 s); its exit
+    status must be ``want_rc``.  Returns (stdout, wall)."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
     wall = time.perf_counter() - t0
     check(proc.returncode == want_rc, f"phase s2: {label} exited {proc.returncode}, not "
-          f"{want_rc}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+          f"{want_rc}:\n{out[-2000:]}\n{err[-4000:]}")
     log(f"phase s2: {label}: exit {proc.returncode} in {wall:.3f} s")
-    return proc.stdout, wall
+    return out, wall
 
 
 def drive_clis(root: Path, counters: Counters, smi: str) -> dict:
@@ -4804,56 +5174,69 @@ def drive_clis(root: Path, counters: Counters, smi: str) -> dict:
     target ran, nothing new: 0) and over a planted wrapper alone that writes
     its argument through a launch (1, ``audit.arg-write`` from the bytes); fsck of
     the synthetic store (0) and of a store with one object deleted (1,
-    ``fsck.missing-object``); the obs summary and the tracer's overhead
-    gate."""
+    ``fsck.missing-object``); the obs summary; these five at once (each
+    wall is its own, shared with the others), then the tracer's overhead
+    gate alone, since it times a warm checkout."""
     from repro_torch.analysis.cli import DEFAULT_BASELINE, build_synthetic_store
     from repro_torch.analysis.kernel_audit import audit_targets
 
-    baseline = ["--baseline", str(ROOT / DEFAULT_BASELINE)]
-    out, _ = cli_run("audit", ["-m", "repro_torch.analysis", "audit", "--json", *baseline], 0)
-    report = json.loads(out)
-    ran = report["checked"]["audit.trace"]
-    traced = [f for f in report["findings"] if f["rule"] == "audit.trace"]
-    check(ran == len(audit_targets()) and not traced and report["new"] == 0,
-          f"phase s2: audit ran {ran} of {len(audit_targets())} targets, {traced}, "
-          f"{report['new']} new")
-    by_rule: dict = {}
-    for f in report["findings"]:
-        key = f"{f['rule']}:{f['severity']}"
-        by_rule[key] = by_rule.get(key, 0) + 1
-    log(f"phase s2: audit on the card: {ran} targets ran, {sum(report['checked'].values())} "
-        f"checks; findings by rule {json.dumps(by_rule, sort_keys=True)}; 0 new")
-
-    out, _ = cli_run("audit with a planted wrapper", ["-c", PLANTED_AUDIT, "audit", "--json",
-                                                      *baseline], 1)
-    planted = [f for f in json.loads(out)["findings"]
-               if f["subject"] == "planted.xor_into_argument" and f["rule"] == "audit.arg-write"]
-    check(len(planted) == 1 and planted[0]["severity"] == "error"
-          and "argument 0's bytes changed" in planted[0]["message"],
-          f"phase s2: the planted write was not caught by its bytes: {planted}")
-    log(f"phase s2: the planted write caught: {planted[0]['message']}")
-
-    cli_run("fsck --synthetic", ["-m", "repro_torch.analysis", "fsck", "--synthetic"], 0)
     store = root / "fsck_store"
     counters.zero()
     build_synthetic_store(store).close()
     counters.read("phase s2 (the fsck store's commits and repack)", ("changed_block_mask",))
     objects = sorted((store / "objects").rglob("*.zst"))
     objects[len(objects) // 2].unlink()
-    out, _ = cli_run("fsck of a store with an object deleted",
-                     ["-m", "repro_torch.analysis", "fsck", str(store), "--json"], 1)
-    rules = {f["rule"] for f in json.loads(out)["findings"]}
-    check("fsck.missing-object" in rules, f"phase s2: fsck found {rules}")
+    baseline = ["--baseline", str(ROOT / DEFAULT_BASELINE)]
+    started = {
+        "audit": cli_start(["-m", "repro_torch.analysis", "audit", "--json", *baseline]),
+        "planted": cli_start(["-c", PLANTED_AUDIT, "audit", "--json", *baseline]),
+        "fsck": cli_start(["-m", "repro_torch.analysis", "fsck", "--synthetic"]),
+        "fsck deleted": cli_start(["-m", "repro_torch.analysis", "fsck", str(store), "--json"]),
+        "summary": cli_start(["-m", "repro_torch.obs", "summary", "--synthetic", "--json"]),
+    }
+    try:
+        out, _ = cli_wait("audit", started["audit"], 0)
+        report = json.loads(out)
+        ran = report["checked"]["audit.trace"]
+        traced = [f for f in report["findings"] if f["rule"] == "audit.trace"]
+        check(ran == len(audit_targets()) and not traced and report["new"] == 0,
+              f"phase s2: audit ran {ran} of {len(audit_targets())} targets, {traced}, "
+              f"{report['new']} new")
+        by_rule: dict = {}
+        for f in report["findings"]:
+            key = f"{f['rule']}:{f['severity']}"
+            by_rule[key] = by_rule.get(key, 0) + 1
+        log(f"phase s2: audit on the card: {ran} targets ran, "
+            f"{sum(report['checked'].values())} checks; findings by rule "
+            f"{json.dumps(by_rule, sort_keys=True)}; 0 new")
 
-    out, _ = cli_run("obs summary", ["-m", "repro_torch.obs", "summary", "--synthetic",
-                                     "--json"], 0)
-    spans = json.loads(out)["spans"]
-    check({"store.commit", "delta.apply_chains", "core.optimize"} <= set(spans),
-          f"phase s2: spans {sorted(spans)}")
-    log("phase s2: obs summary spans: " + ", ".join(
-        f"{k} x{v['count']}" for k, v in sorted(spans.items())))
-    out, _ = cli_run("obs overhead", ["-m", "repro_torch.obs", "overhead", "--budget-pct",
-                                      str(S_OVERHEAD_BUDGET_PCT)], 0)
+        out, _ = cli_wait("audit with a planted wrapper", started["planted"], 1)
+        planted = [f for f in json.loads(out)["findings"]
+                   if f["subject"] == "planted.xor_into_argument"
+                   and f["rule"] == "audit.arg-write"]
+        check(len(planted) == 1 and planted[0]["severity"] == "error"
+              and "argument 0's bytes changed" in planted[0]["message"],
+              f"phase s2: the planted write was not caught by its bytes: {planted}")
+        log(f"phase s2: the planted write caught: {planted[0]['message']}")
+
+        cli_wait("fsck --synthetic", started["fsck"], 0)
+        out, _ = cli_wait("fsck of a store with an object deleted", started["fsck deleted"], 1)
+        rules = {f["rule"] for f in json.loads(out)["findings"]}
+        check("fsck.missing-object" in rules, f"phase s2: fsck found {rules}")
+
+        out, _ = cli_wait("obs summary", started["summary"], 0)
+        spans = json.loads(out)["spans"]
+        check({"store.commit", "delta.apply_chains", "core.optimize"} <= set(spans),
+              f"phase s2: spans {sorted(spans)}")
+        log("phase s2: obs summary spans: " + ", ".join(
+            f"{k} x{v['count']}" for k, v in sorted(spans.items())))
+    finally:
+        for proc, _ in started.values():  # stops any left after a failed check
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    out, _ = cli_wait("obs overhead", cli_start(
+        ["-m", "repro_torch.obs", "overhead", "--budget-pct", str(S_OVERHEAD_BUDGET_PCT)]), 0)
     overhead = json.loads(out[: out.rindex("}") + 1])
     log(f"phase s2: disabled-tracer overhead {overhead['overhead_pct']}% of a "
         f"{overhead['warm_checkout_us']} us warm checkout ({overhead['instrumentation_points']} "
@@ -5036,6 +5419,9 @@ def main(argv=None) -> int:
     from repro_torch import kernels
 
     start = time.perf_counter()
+    # a run still going near the 1,200 s limit leaves every thread's stack
+    # on standard error, beside the phase it reached (below)
+    faulthandler.dump_traceback_later(STACKS_AFTER_S, exit=False)
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -5054,6 +5440,8 @@ def main(argv=None) -> int:
         if letter not in only:
             return None
         t0 = time.perf_counter()
+        print(f"chip_smoke: phase {letter} starts at {t0 - start:.1f} s", file=sys.stderr,
+              flush=True)
         out = fn(*args)
         log(f"phase {letter}: wall {time.perf_counter() - t0:.3f} s")
         return out
@@ -5078,6 +5466,8 @@ def main(argv=None) -> int:
         phase("l", drive_checkpoint_loop, Path(tmp) / "train_loop", counters)
         phase("t", drive_twins, Path(tmp) / "twins", counters)
     phase("h", drive_serving, counters)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_") as tmp:
+        phase("u", drive_mesh, Path(tmp), counters)
     phase("m", drive_deepseek, counters)
     phase("n", drive_phi, counters)
     phase("o", drive_recurrent, counters)
@@ -5092,6 +5482,11 @@ def main(argv=None) -> int:
         phase("s", drive_dots_and_clis, Path(tmp), counters)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"total wall {time.perf_counter() - start:.3f} s")
+    faulthandler.cancel_dump_traceback_later()
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # phase (u)'s NCCL group
+        dist.destroy_process_group()
 
     for r in results:
         r["launches"] = counters.total[r["name"]]

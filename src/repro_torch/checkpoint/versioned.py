@@ -13,10 +13,12 @@ enforces it while shrinking bytes at rest.
   background thread;
 * **branch aware**: fine-tune forks pass explicit parent steps, building the
   DAG the solvers optimize;
-* **restore onto the manager's device**: checkpoints are stored by logical
-  path (the JAX package's keys, so a checkpoint saved by either package
-  restores in the other); re-sharding onto a mesh waits for the mesh tooling
-  (ROADMAP Queue 1 item 7);
+* **restore onto the manager's device, or onto a mesh**: checkpoints are
+  stored by logical path (the JAX package's keys, so a checkpoint saved by
+  either package restores in the other); ``shardings=`` (one
+  ``NamedSharding`` of ``repro_torch.distributed.sharding`` or a tree of
+  them) makes each leaf a DTensor holding the rank's block: the elastic
+  restore, whose mesh may differ from the one that saved;
 * **emergency saves**: a synchronous path for preemption handlers.
 
 The manager runs on its store's device, the card unless the caller passes
@@ -36,15 +38,12 @@ import numpy as np
 import torch
 
 from ..core import OptimizeSpec
+from ..distributed.sharding import NamedSharding
 from ..kernels import resolve_device
 from ..store import VersionStore
 from ..store.convert import tensor_from_numpy
 from ..store.delta import FlatTree
 from ..tree import tree_map
-
-_MESH = ("restoring onto shardings needs a device mesh: it waits for the pod and "
-         "mesh tooling (ROADMAP Queue 1 item 7)")
-
 
 class VersionedCheckpointManager:
     def __init__(
@@ -145,7 +144,9 @@ class VersionedCheckpointManager:
         """Rebuild ``template``-shaped state from the store, on the manager's
         device.  ``template`` is a tree of tensors (any device, ``meta``
         included), numpy arrays or ``(shape, dtype)`` pairs giving the
-        logical structure."""
+        logical structure; ``shardings`` (a tree of its structure or a
+        single sharding) re-shards each leaf onto a mesh
+        (:func:`restore_to_template`)."""
         self.wait()
         vid = self.step_to_vid[step] if step is not None else self.latest_vid()
         if vid is None:
@@ -230,25 +231,44 @@ def _is_pair(node: Any) -> bool:
     return isinstance(node, tuple) and len(node) == 2 and isinstance(node[1], torch.dtype)
 
 
+def _sub(sh: Any, k: Any) -> Any:
+    """The shardings under key or index ``k``: a single sharding (or none)
+    covers the whole subtree."""
+    if sh is None or isinstance(sh, NamedSharding):
+        return sh
+    return sh.get(k) if isinstance(sh, dict) else sh[k]
+
+
 def restore_to_template(flat: FlatTree, template: Any, shardings: Any = None,
                         *, device: Union[str, torch.device] = "cuda") -> Any:
     """Match store paths onto ``template``'s structure; each leaf is cast to
     the template's dtype and copied onto ``device`` (never shared with the
-    store's cache, which a train step must not write into)."""
-    if shardings is not None:
-        raise NotImplementedError(_MESH)
+    store's cache, which a train step must not write into).  With
+    ``shardings`` (one ``NamedSharding``, or a tree of them with the
+    template's structure) each leaf becomes a DTensor on the sharding's mesh,
+    on the mesh's device type, whose local tensor is this rank's block."""
     device = resolve_device(device)
 
-    def build(node: Any, path: tuple) -> Any:
+    def build(node: Any, path: tuple, sh: Any) -> Any:
         if isinstance(node, dict):
-            return {k: build(v, path + (str(k),)) for k, v in node.items()}
+            return {k: build(v, path + (str(k),), _sub(sh, k)) for k, v in node.items()}
         if isinstance(node, (list, tuple)) and not _is_pair(node):
-            return type(node)(build(v, path + (str(i),)) for i, v in enumerate(node))
+            return type(node)(build(v, path + (str(i),), _sub(sh, i))
+                              for i, v in enumerate(node))
         if node is None:
             return None
         key = "/".join(path)
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        return flat[key].to(device=device, dtype=_leaf_dtype(node), copy=True)
+        if sh is None:
+            return flat[key].to(device=device, dtype=_leaf_dtype(node), copy=True)
+        if not isinstance(sh, NamedSharding):
+            raise TypeError(f"leaf {key!r}: a sharding must be a NamedSharding, not {sh!r}")
+        from torch.distributed.tensor import distribute_tensor
 
-    return build(template, ())
+        mesh = sh.mesh
+        leaf = flat[key].to(device=mesh.device_type, dtype=_leaf_dtype(node), copy=True)
+        # every rank reads the same store: each keeps its own block, no scatter
+        return distribute_tensor(leaf, mesh, sh.placements, src_data_rank=None)
+
+    return build(template, (), shardings)

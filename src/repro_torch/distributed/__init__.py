@@ -1,3 +1,3 @@
-"""Distributed-training pieces of the port that run on one card: gradient
-compression (``compression``).  Sharding and the mesh wait for the pod
-tooling (ROADMAP Queue 1 item 7)."""
+"""Distributed-training pieces of the port: gradient compression
+(``compression``, with the int8 all-reduce ``compressed_psum``) and
+logical-axis sharding over a ``DeviceMesh`` (``sharding``)."""

@@ -6,18 +6,21 @@ Gradients are quantized to int8 with a per-block f32 scale (blocks of
 quantization residual is carried into the next step (error feedback: Seide
 et al. '14, Karimireddy et al. '19).  On one card there is no wire, so, as
 in the JAX package's SPMD path, the train step applies quantize then
-dequantize to the gradient; it models the information loss.  Rounding is
+dequantize to the gradient; it models the information loss.
+:func:`compressed_psum` is the int8 all-reduce over a mesh axis.  Rounding is
 half to even (``torch.round``, as ``jnp.round``), and the divisions divide
 by tensors, as XLA does, never by a reciprocal.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from ..tree import tree_map
+from . import sharding
 
 BLOCK = 256
 
@@ -56,11 +59,26 @@ def compress_grads(grads: Any, error_fb: Any) -> Tuple[Any, Any]:
     return comp, new_e
 
 
-def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    """The int8-on-the-wire all-reduce of the JAX package's pod path: it needs
-    a device mesh, which waits for the pod and mesh tooling (ROADMAP Queue 1
-    item 7)."""
-    raise NotImplementedError(
-        "compressed_psum needs a device mesh: it waits for the pod and mesh "
-        "tooling (ROADMAP Queue 1 item 7)"
-    )
+def compressed_psum(x: torch.Tensor, axis_name: Union[str, Tuple[str, ...]]) -> torch.Tensor:
+    """int8-on-the-wire all-reduce over mesh axis ``axis_name`` (one name or
+    a tuple) of the active ``logical_sharding`` mesh, as the JAX package's
+    ``compressed_psum`` inside ``shard_map``: quantize locally, take the
+    largest block scale across the axis (``all_reduce(MAX)`` on the f32
+    scales), renormalise the local blocks to it and round half to even into
+    int32, sum them (``all_reduce(SUM)``, int32 on the wire, as JAX's
+    ``psum`` of its int32 blocks), and dequantize.  Outside a mesh,
+    or for an axis the mesh does not have, it raises ``ValueError`` (where
+    JAX raises its unbound-axis error).  At world size 1 it equals
+    :func:`quant_dequant` bit for bit."""
+    mesh = sharding.active_mesh()
+    if mesh is None:
+        raise ValueError(f"compressed_psum over {axis_name!r} needs an active "
+                         "logical_sharding(mesh)")
+    group = sharding.axis_group(mesh, axis_name)
+    q, s = _quantize(x.to(torch.float32))
+    s_max = s.clone()
+    dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+    # renormalize local blocks to the shared scale so the int32 sum is exact
+    q32 = torch.round(q.to(torch.float32) * (s / torch.clamp(s_max, min=1e-12))).to(torch.int32)
+    dist.all_reduce(q32, op=dist.ReduceOp.SUM, group=group)
+    return _dequantize(q32.to(torch.float32), s_max, x.shape, x.numel())

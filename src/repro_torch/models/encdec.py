@@ -93,6 +93,40 @@ def init_params_encdec(cfg: ModelConfig, generator: torch.Generator,
 
 
 # ------------------------------------------------------------------ forward
+_ATTN_AXES = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+              "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+_MLP_AXES_SW = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
+_MLP_AXES_GE = {"w_in": ("embed", "mlp"), "w_out": ("mlp", "embed")}
+
+
+def param_axes_encdec(cfg: ModelConfig, params: Params) -> Any:
+    """The logical axes of the enc-dec parameter tree, the JAX package's."""
+    st = lambda d: {k: ("stack",) + v for k, v in d.items()}  # noqa: E731
+    mlp_axes = _MLP_AXES_SW if cfg.mlp_kind == "swiglu" else _MLP_AXES_GE
+    return {
+        "embed": ("vocab", "embed"),
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+        "enc": {
+            "attn": st(_ATTN_AXES), "mlp": st(mlp_axes),
+            "norm1": ("stack", None), "norm2": ("stack", None),
+            "final_norm": (None,),
+        },
+        "dec": {
+            "self": st(_ATTN_AXES), "cross": st(_ATTN_AXES), "mlp": st(mlp_axes),
+            "norm1": ("stack", None), "norm2": ("stack", None),
+            "norm3": ("stack", None),
+        },
+    }
+
+
+def cache_axes_encdec(cfg: ModelConfig, cache: Dict) -> Any:
+    """The logical axes of the enc-dec cache, the JAX package's."""
+    kv = ("stack", "batch", "kv_seq", "kv_heads", None)
+    return {"self": {"k": kv, "v": kv}, "enc_out": ("batch", "seq", "act_embed")}
+
+
 def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return (mlp_swiglu if cfg.mlp_kind == "swiglu" else mlp_gelu)(x, p)
 

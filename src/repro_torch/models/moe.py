@@ -19,9 +19,10 @@ bin off before the experts; the port keeps the experts first, so that the
 stacked SwiGLU is three batched matmuls over the experts with no copy, and
 runs the experts over the bin too: what lands there is masked out at the
 combine, exactly as JAX's zeroed bin is.  The expert-parallel form
-(``moe_impl="ep"``, ``repro.models.moe_ep``) waits for the pod tooling
-(ROADMAP Queue 1 item 7).  The JAX package's ``shard`` annotations are
-no-ops outside a mesh and have no counterpart.
+(``moe_impl="ep"``) is :mod:`.moe_ep`.  The JAX package's ``shard``
+annotations are not threaded into the port's models: ``shard`` exists
+(``repro_torch.distributed.sharding``), and only a DTensor forward would
+read it.
 """
 
 from __future__ import annotations

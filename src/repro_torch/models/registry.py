@@ -9,9 +9,10 @@ the trainer share.  Batches:
 
 The port runs decoder configs of ``attn`` (GQA, windowed or not), ``mla``,
 ``rglru`` and ``rwkv`` blocks, with a dense MLP or an MoE
-(``moe_impl="dispatch"``), and the encoder-decoder family
-(:mod:`.encdec`); the expert-parallel MoE raises and names its ROADMAP item.
-Sharding axes (``param_axes`` / ``cache_axes``) wait for the mesh tooling.
+(``moe_impl="dispatch"``, or the expert-parallel ``"ep"`` under a
+``logical_sharding`` mesh), and the encoder-decoder family (:mod:`.encdec`).
+``param_axes`` / ``cache_axes`` give a parameter or cache tree's logical
+sharding axes (``repro_torch.distributed.sharding``), the JAX package's.
 
 ``count_params`` derives N (total and active) analytically from the config,
 a copy of the JAX package's, with its two miscounts (ROADMAP Queue 3): it
@@ -35,23 +36,25 @@ from . import transformer as tf
 class ModelBundle:
     cfg: ModelConfig
     init: Callable[..., Any]             # (generator, device="cuda") -> params
+    param_axes: Callable[[Any], Any]     # params -> logical axes tree
     train_logits: Callable[..., Any]     # (params, batch) -> (logits, aux)
     train_hidden: Callable[..., Any]     # (params, batch) -> (hidden, aux)
     head: Callable[..., Any]             # (params, hidden) -> logits
     init_cache: Callable[..., Any]       # (batch, max_len, [enc_len,] device="cuda") -> cache
+    cache_axes: Callable[[Any], Any]     # cache -> logical axes tree
     prefill: Callable[..., Any]          # (params, batch, cache) -> (logits, cache)
     decode_step: Callable[..., Any]      # (params, token, cache, pos) -> ...
 
 
 def get_model(cfg: ModelConfig) -> ModelBundle:
-    """The bundle of ``cfg``; a form the port does not run yet raises
-    ``NotImplementedError`` naming its ROADMAP item (the expert-parallel
-    MoE).  The enc-dec bundle's ``init_cache`` takes ``enc_len``, the rows of
-    the cache's ``enc_out`` entry, ``max_len`` by default."""
+    """The bundle of ``cfg``.  The enc-dec bundle's ``init_cache`` takes
+    ``enc_len``, the rows of the cache's ``enc_out`` entry, ``max_len`` by
+    default."""
     if cfg.is_encdec:
         return ModelBundle(
             cfg=cfg,
             init=lambda generator, device="cuda": ed.init_params_encdec(cfg, generator, device),
+            param_axes=lambda p: ed.param_axes_encdec(cfg, p),
             train_logits=lambda p, batch: ed.forward_train_encdec(
                 cfg, p, batch["frames"], batch["tokens"]),
             train_hidden=lambda p, batch: ed.forward_hidden_encdec(
@@ -59,17 +62,19 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
             head=lambda p, h: tf.lm_logits(cfg, p, h),
             init_cache=lambda batch, max_len, enc_len=None, device="cuda": ed.init_cache_encdec(
                 cfg, batch, max_len, enc_len or max_len, device),
+            cache_axes=lambda c: ed.cache_axes_encdec(cfg, c),
             prefill=lambda p, batch, cache: ed.prefill_encdec(
                 cfg, p, batch["frames"], batch["tokens"], cache),
             decode_step=lambda p, tok, cache, pos: ed.decode_step_encdec(
                 cfg, p, tok, cache, pos),
         )
     for seg in tf.segments(cfg):
-        for kind, use_moe in seg.unit:
-            tf.check_kind(cfg, kind, use_moe)
+        for kind, _ in seg.unit:
+            tf.check_kind(kind)
     return ModelBundle(
         cfg=cfg,
         init=lambda generator, device="cuda": tf.init_params(cfg, generator, device),
+        param_axes=lambda p: tf.param_axes(cfg, p),
         train_logits=lambda p, batch: tf.forward_train(
             cfg, p, batch["tokens"], inputs_embeds=batch.get("inputs_embeds")),
         train_hidden=lambda p, batch: tf.forward_hidden(
@@ -77,6 +82,7 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
         head=lambda p, h: tf.lm_logits(cfg, p, h),
         init_cache=lambda batch, max_len, device="cuda": tf.init_cache(
             cfg, batch, max_len, device),
+        cache_axes=lambda c: tf.cache_axes(cfg, c),
         prefill=lambda p, batch, cache: tf.prefill(
             cfg, p, batch["tokens"], cache, inputs_embeds=batch.get("inputs_embeds")),
         decode_step=lambda p, tok, cache, pos: tf.decode_step(cfg, p, tok, cache, pos),

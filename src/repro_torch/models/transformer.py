@@ -35,8 +35,12 @@ MoE (``cfg.layer_uses_moe``), and ``rwkv`` (RWKV-6), which carries its own
 channel mix.  With ``cfg.mtp`` the tree has DeepSeek's
 multi-token-prediction head (``mtp``), whose hidden states the forward pass
 returns in its aux; its block runs outside the per-layer remat, as in the
-JAX package.  The expert-parallel MoE waits for the pod tooling
-(ROADMAP Queue 1) and raises.
+JAX package.  Under ``cfg.moe_impl == "ep"`` an MoE layer runs the
+expert-parallel block (:mod:`.moe_ep`), which needs an active
+``logical_sharding(mesh)`` and without one runs the dispatch.
+
+:func:`param_axes` and :func:`cache_axes` give the parameter and cache trees'
+logical axes (``repro_torch.distributed.sharding``), the JAX package's.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from ..kernels import resolve_device
 from ..tree import tree_map
 from . import attention as attn_lib
 from . import moe as moe_lib
+from . import moe_ep as moe_ep_lib
 from . import recurrent as rec_lib
 from .layers import Params, mlp_gelu, mlp_swiglu, rms_norm
 
@@ -96,16 +101,10 @@ def segments(cfg: ModelConfig) -> List[Segment]:
     return segs
 
 
-def check_kind(cfg: ModelConfig, kind: str, use_moe: bool) -> None:
-    """Raise ``ValueError`` for an unknown block kind, and
-    ``NotImplementedError``, naming its ROADMAP item, for a form the port
-    does not run yet (the expert-parallel MoE)."""
+def check_kind(kind: str) -> None:
+    """Raise ``ValueError`` for an unknown block kind."""
     if kind not in ("attn", "mla", "rglru", "rwkv"):
         raise ValueError(kind)
-    if use_moe and cfg.moe_impl == "ep":
-        raise NotImplementedError(
-            f"{cfg.name}: the expert-parallel MoE (moe_impl='ep') waits for the pod "
-            "tooling (ROADMAP Queue 1 item 7); the port runs moe_impl='dispatch'")
 
 
 # ---------------------------------------------------------------- block init
@@ -133,7 +132,7 @@ def block_spec(cfg: ModelConfig, kind: str, use_moe: bool,
     the RG-LRU's Λ).  The shapes, inits and dtypes are those of the JAX
     package's ``block_init``: bf16, but for the MoE router's and the
     recurrent blocks' vectors, f32."""
-    check_kind(cfg, kind, use_moe)
+    check_kind(kind)
     D, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     std = 0.02
@@ -243,6 +242,63 @@ def block_init(cfg: ModelConfig, kind: str, use_moe: bool, generator: torch.Gene
     return _draw(block_spec(cfg, kind, use_moe, repeats=repeats), generator, device)
 
 
+_AXES_BY_NAME = {
+    "norm1": (None,), "norm2": (None,), "q_norm": (None,), "k_norm": (None,),
+    "kv_norm": (None,),
+    "wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+    "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed"),
+    "wq_a": ("embed", None), "wq_b": (None, "heads", None),
+    "wkv_a": ("embed", None), "wkv_b": (None, "heads", None),
+    "w_rec_in": ("embed", "lru"), "w_gate_in": ("embed", "lru"),
+    "w_out": ("lru", "embed"), "conv_w": (None, "lru"),
+    "a_gate": ("lru",), "a_gate_bias": ("lru",), "i_gate": ("lru",),
+    "i_gate_bias": ("lru",), "lambda": ("lru",),
+    "mu_x": (None,), "mu_rkvwg": (None, None),
+    "shift_w1": ("embed", None), "shift_w2": (None, None, None),
+    "w_r": ("embed", None), "w_k": ("embed", None), "w_v": ("embed", None),
+    "w_g": ("embed", None), "w_o": ("embed", None),
+    "w0": (None,), "decay_w1": ("embed", None), "decay_w2": (None, None),
+    "u": (None,), "ln_x_scale": (None,), "ln_x_bias": (None,),
+    "ffn_mu_k": (None,), "ffn_mu_r": (None,),
+    "ffn_k": ("embed", "mlp"), "ffn_v": ("mlp", "embed"), "ffn_r": ("embed", None),
+    "mlp": {
+        "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+        "w_down": ("mlp", "embed"), "w_in": ("embed", "mlp"),
+        "w_out": ("mlp", "embed"),
+    },
+    "moe": {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", None), "w_up": ("experts", "embed", None),
+        "w_down": ("experts", None, "embed"),
+        "shared_w_gate": ("embed", "mlp"), "shared_w_up": ("embed", "mlp"),
+        "shared_w_down": ("mlp", "embed"),
+    },
+}
+
+
+def block_axes(p: Params, *, stacked: bool, moe_impl: str = "dispatch") -> Any:
+    """Logical axes tree matching a block's params (optionally +stack dim)."""
+
+    def of(name_path, leaf):
+        table = _AXES_BY_NAME
+        for name in name_path[:-1]:
+            table = table[name]
+        axes = table[name_path[-1]]
+        if moe_impl == "ep" and name_path[0] == "moe" and axes[0] == "experts":
+            # EP: experts over the (data, model) mesh; the inner dim ZeRO-3
+            # shards over "pod" and is regathered inside the EP block
+            axes = ("experts_ep", "expert_fsdp") + (None,) * (len(axes) - 2)
+        return (("stack",) + tuple(axes)) if stacked else tuple(axes)
+
+    out = {}
+    for k, v in p.items():
+        if isinstance(v, dict):
+            out[k] = {k2: of((k, k2), v2) for k2, v2 in v.items()}
+        else:
+            out[k] = of((k,), v)
+    return out
+
+
 # --------------------------------------------------------------- block apply
 def block_apply(
     cfg: ModelConfig,
@@ -256,7 +312,7 @@ def block_apply(
     pos: int = 0,
     window: int = 0,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    check_kind(cfg, kind, use_moe)
+    check_kind(kind)
     if kind == "rwkv":  # both sublayers and their norms
         return rec_lib.rwkv_block(cfg, p, x, cache)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -280,14 +336,15 @@ def block_apply(
     x = x + a
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     if use_moe:
-        return x + moe_lib.moe_block(cfg, p["moe"], h2), new_cache
+        moe_fn = moe_ep_lib.moe_block_ep if cfg.moe_impl == "ep" else moe_lib.moe_block
+        return x + moe_fn(cfg, p["moe"], h2), new_cache
     mlp = mlp_swiglu if cfg.mlp_kind == "swiglu" else mlp_gelu
     return x + mlp(h2, p["mlp"]), new_cache
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      *, window: int = 0, device="cuda") -> Dict:
-    check_kind(cfg, kind, False)
+    check_kind(kind)
     if kind == "mla":
         return attn_lib.mla_init_cache(cfg, batch, max_len, device=device)
     if kind == "rglru":
@@ -332,6 +389,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
     ``device`` from ``generator``, which must be a generator of that device.
     The shapes, stds and dtypes are JAX's; the random stream is not."""
     return _draw(param_spec(cfg), generator, resolve_device(device))
+
+
+def param_axes(cfg: ModelConfig, params: Params) -> Any:
+    """The logical axes of ``params`` (tensors, or any tree of its
+    structure), the JAX package's ``param_axes``."""
+    axes: Dict[str, Any] = {
+        "embed": ("vocab", "embed"),
+        "final_norm": (None,),
+    }
+    if "lm_head" in params:
+        axes["lm_head"] = ("embed", "vocab")
+    axes["segments"] = [
+        [block_axes(sub, stacked=True, moe_impl=cfg.moe_impl) for sub in seg]
+        for seg in params["segments"]
+    ]
+    if "mtp" in params:
+        axes["mtp"] = {
+            "proj": ("embed", None),
+            "block": block_axes(params["mtp"]["block"], stacked=False,
+                                moe_impl=cfg.moe_impl),
+        }
+    return axes
 
 
 def _unstack(tree: Any, repeats: int) -> List[Any]:
@@ -461,6 +540,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> lis
                                       device=device), one))
         caches.append(seg_caches)
     return caches
+
+
+def cache_axes(cfg: ModelConfig, cache: list) -> Any:
+    """Logical axes for the decode cache, the JAX package's: KV tensors
+    shard over batch (and kv heads where divisible); recurrent states over
+    batch only.  A leaf is named by its last dict key and its rank."""
+
+    def walk(node: Any, last: Optional[str]) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v, str(k)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, last) for v in node)
+        if node is None:
+            return None
+        nd = len(node.shape)
+        if last in ("k", "v") and nd == 5:       # (stack, B, S, KV, hd)
+            axes = ("stack", "batch", "kv_seq", "kv_heads", None)
+        elif last == "ckv" and nd == 4:          # (stack, B, S, latent)
+            axes = ("stack", "batch", "kv_seq", None)
+        else:                                     # recurrent states
+            axes = tuple(["stack", "batch"] + [None] * (nd - 2))
+        return axes[:nd]
+
+    return walk(cache, None)
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cache: list,

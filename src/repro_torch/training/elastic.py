@@ -3,10 +3,10 @@
 package.
 
 On a 1000+-node fleet, hosts fail and get replaced mid-run.  The data-plane
-elasticity (re-sharding checkpoints onto a different mesh) lives in the JAX
-package's ``checkpoint.restore_to_template``; the port's places leaves on one
-device, and re-sharding waits for the mesh tooling (ROADMAP Queue 1 item 7).
-This module is the control plane that pairs with it:
+elasticity (re-sharding checkpoints onto a different mesh) lives in
+``checkpoint.restore_to_template(shardings=)``, which places each leaf as a
+DTensor on the new mesh.  This module is the control plane that pairs with
+it:
 
 * :class:`HostTopology` — the current set of healthy hosts and the
   deterministic assignment of data-pipeline shards to hosts.  On failure or

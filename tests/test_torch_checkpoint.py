@@ -130,9 +130,6 @@ class TestRoundTrip:
         flat = {"a": torch.zeros(3)}
         with pytest.raises(KeyError, match="missing leaf 'b'"):
             restore_to_template(flat, {"b": ((3,), torch.float32)}, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            restore_to_template(flat, {"a": ((3,), torch.float32)}, shardings=[None],
-                                device="cpu")
         out = restore_to_template(flat, {"a": ((3,), torch.float64), "none": None},
                                   device="cpu")
         assert out["a"].dtype == torch.float64 and out["none"] is None

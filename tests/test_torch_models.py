@@ -288,8 +288,7 @@ def test_init_params_tree_matches_jax(name):
 @pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "rwkv6-3b",
                                   "recurrentgemma-9b", "seamless-m4t-medium"])
 def test_other_families_raise(name, tmp_path, monkeypatch):
-    """What the port does not run raises, naming its reason: Phi-3.5-MoE's
-    expert-parallel form (``moe_impl="ep"``, ROADMAP Queue 1 item 7); the
+    """What the port does not run raises, naming its reason: the
     enc-dec family in ``launch.train.train``, which refuses it before it
     draws a parameter, as the JAX package's driver cannot train it either
     (its pipeline makes tokens only; the family trains through
@@ -297,13 +296,22 @@ def test_other_families_raise(name, tmp_path, monkeypatch):
     families, which the driver once refused, serve and train through it
     (tests/test_torch_train_recurrent.py).  DeepSeek's train loss, which
     once raised rather than drop the MTP term, now includes it and equals
-    JAX's on the same weights and tokens."""
+    JAX's on the same weights and tokens.  Phi-3.5-MoE's expert-parallel
+    form (``moe_impl="ep"``), which once raised, runs: with no mesh it is
+    the dispatch, bit for bit (the JAX module's rule; on a mesh,
+    tests/test_torch_mesh_ranks.py)."""
     if name not in ARCHS:
         pytest.fail(f"{name} is not an arch: {sorted(ARCHS)}")
     cfg = ARCHS[name]
     if name == "phi3.5-moe-42b-a6.6b":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            get_model(dataclasses.replace(cfg, moe_impl="ep"))
+        small = cfg.reduced()
+        params = get_model(small).init(torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.from_numpy(np.random.RandomState(6).randint(0, small.vocab, (2, 16)))
+        with torch.no_grad():
+            want = get_model(small).train_logits(params, {"tokens": tokens})[0]
+            got = get_model(dataclasses.replace(small, moe_impl="ep")).train_logits(
+                params, {"tokens": tokens})[0]
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
         return
     if name == "deepseek-v3-671b":
         model = jax_get_model(JAX_ARCHS[name].reduced())

@@ -352,7 +352,8 @@ class TestEntryPoints:
             " repro_torch.launch, repro_torch.launch.serve, repro_torch.launch.train,"
             " repro_torch.training, repro_torch.training.optimizer,"
             " repro_torch.training.train_loop, repro_torch.training.elastic,"
-            " repro_torch.distributed.compression,"
+            " repro_torch.distributed.compression, repro_torch.distributed.sharding,"
+            " repro_torch.models.moe_ep, repro_torch.launch.mesh,"
             " repro_torch.checkpoint, repro_torch.data.pipeline, repro_torch.tree;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')];"
